@@ -1,0 +1,229 @@
+"""Typed configuration tree for the PyTorch port.
+
+A copy of the dataclasses of ``em_adapt_tpu/config.py`` with the fields
+the training slice reads, and the same defaults: ``ExperimentConfig()``
+is the reference recipe (f32, batch 6, accumulation 5, 321x321 input, 21
+classes). Fields of later slices are added with them. Values the port
+does not run yet are rejected by :func:`check_supported`, which names the
+ROADMAP.md item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class EStepConfig:
+    """E-step parameters (reference deeplab.py:181): bg_p=0.4, fg_p=0.2,
+    num_iter=5, suppress_others=True, margin_others=1e-5.
+
+    ``impl``: "auto" or "pallas" run the E-step kernel (the hand-written
+    CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU
+    tensor); "jax" runs the sort reference. The names follow the JAX
+    package so that one config file drives both.
+    """
+
+    method: str = "adaptive"
+    bg_p: float = 0.4
+    fg_p: float = 0.2
+    num_iter: int = 5
+    suppress_others: bool = True
+    margin_others: float = 1e-5
+    impl: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """DeepLab-LargeFOV (VGG-16 + atrous) knobs (reference deeplab.py:35-107)."""
+
+    num_classes: int = 21
+    input_size: tuple[int, int] = (321, 321)
+    input_channels: int = 3
+    #: TF1 ``tf.nn.dropout`` keep probability (reference deeplab.py:104, :266).
+    dropout_keep_prob: float = 0.5
+    #: Uniform width multiplier on the VGG blocks (1.0 = reference widths).
+    width_multiplier: float = 1.0
+    conv5_rate: int = 2
+    fc6_rate: int = 4
+    fc6_channels: int = 4096
+    compute_dtype: str = "float32"
+    remat: bool = False
+    #: "auto" and "xla" both run the plain conv path in this port.
+    block1_impl: str = "auto"
+    #: Caffe-converted ``init.npy`` (reference deeplab.py:293); None = random.
+    init_model_path: str | None = None
+    #: "reference" (N(0, 0.01) weights, zero bias) or "he".
+    init_scheme: str = "reference"
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline (reference dataset.py:7-19, :107-145)."""
+
+    input_size: tuple[int, int] = (321, 321)
+    random_scale: bool = True
+    scale_range: tuple[float, float] = (0.75, 1.25)
+    flip: bool = True
+    num_workers: int = 8
+    #: "float32" (BGR mean-subtracted on the host) or "uint8" (raw RGB,
+    #: normalized on the device).
+    wire_dtype: str = "float32"
+    #: Shrink train labels to this size on the host (same TF1 grid).
+    train_label_size: tuple[int, int] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """SGD + momentum with accumulation and staged LR (reference
+    deeplab.py:188-208, :243-262)."""
+
+    base_lr: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 1e-5
+    accum_steps: int = 5
+    lr_schedule: tuple[tuple[int, float], ...] = ((10, 1e-4), (20, 1e-5), (30, 1e-6))
+    lr_multipliers: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 6  # reference deeplab.py:288
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    estep: EStepConfig = dataclasses.field(default_factory=EStepConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_supported(cfg: ExperimentConfig) -> None:
+    """Raise for a config value this slice of the port does not run."""
+    unsupported = [
+        (cfg.model.compute_dtype != "float32",
+         f"model.compute_dtype={cfg.model.compute_dtype!r}",
+         "Queue 1 item 1 (the bf16 slice)"),
+        (cfg.model.block1_impl == "pallas", "model.block1_impl='pallas'",
+         "Queue 1 item 1 and Queue 2 K2/K3 (the fused block1 kernels)"),
+        (cfg.model.remat, "model.remat=True", "Queue 1 item 1 (the bf16 slice)"),
+        (cfg.estep.impl == "native", "estep.impl='native'",
+         "Queue 1 item 4 (the native E-step binding)"),
+        (cfg.estep.method == "fixed", "estep.method='fixed'",
+         "Queue 1 item 3 (EM-Fixed)"),
+        (cfg.optim.lr_multipliers, "optim.lr_multipliers=True",
+         "Queue 1 item 2 (trainer loop, checkpoint and resume)"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP.md {item} brings it"
+            )
+    if cfg.estep.method != "adaptive":
+        raise ValueError(f"estep.method={cfg.estep.method!r}: expected 'adaptive'")
+    if cfg.estep.impl not in ("auto", "jax", "pallas"):
+        raise ValueError(
+            f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax' or 'pallas'"
+        )
+    if cfg.model.block1_impl not in ("auto", "xla"):
+        raise ValueError(
+            f"model.block1_impl={cfg.model.block1_impl!r}: expected 'auto' or 'xla'"
+        )
+
+
+def _coerce_override(raw: str, tp, key: str):
+    """Parse one CLI override value and validate it against the field type
+    (``true``/``false``/``none`` spellings accepted; a string that cannot
+    be read as the field's type is an error)."""
+    import ast
+    import types as _types
+    import typing
+
+    try:
+        value = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        value = raw
+
+    if tp is None:
+        return value
+    options = (
+        typing.get_args(tp)
+        if typing.get_origin(tp) in (typing.Union, _types.UnionType)
+        else (tp,)
+    )
+    concrete = tuple(
+        c
+        for c in (typing.get_origin(o) or o for o in options)
+        if isinstance(c, type)
+    )
+    if isinstance(value, str):
+        low = value.strip().lower()
+        if bool in concrete and low in ("true", "false"):
+            return low == "true"
+        if type(None) in concrete and low in ("none", "null"):
+            return None
+        if str in concrete:
+            return value
+        raise ValueError(f"override {key}={raw!r}: cannot interpret {raw!r} as {tp}")
+    if isinstance(value, int) and not isinstance(value, bool):
+        if float in concrete and int not in concrete:
+            return float(value)
+    if concrete and not isinstance(value, concrete):
+        raise ValueError(
+            f"override {key}={raw!r}: parsed {value!r} "
+            f"({type(value).__name__}) does not match field type {tp}"
+        )
+    return value
+
+
+def apply_overrides(cfg: ExperimentConfig, overrides: Sequence[str]) -> ExperimentConfig:
+    """Apply CLI 'dotted.key=value' overrides to a config tree.
+
+    ``model.input_size`` and ``data.input_size`` are one quantity:
+    overriding either syncs the other; overriding both differently raises.
+    """
+    import typing
+
+    keys = set()
+    for item in overrides:
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise ValueError(f"override {item!r} must look like key=value")
+        keys.add(key)
+        parts = key.split(".")
+        node = cfg
+        for p in parts[:-1]:
+            node = getattr(node, p)
+        try:
+            tp = typing.get_type_hints(type(node)).get(parts[-1])
+        except Exception:
+            tp = None
+        cfg = _replace_path(cfg, parts, _coerce_override(raw, tp, key))
+    if cfg.model.input_size != cfg.data.input_size:
+        m_set = "model.input_size" in keys
+        d_set = "data.input_size" in keys
+        if m_set and d_set:
+            raise ValueError(
+                f"model.input_size={cfg.model.input_size} and "
+                f"data.input_size={cfg.data.input_size} disagree — they "
+                "are the same quantity; set just one"
+            )
+        if m_set:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, input_size=cfg.model.input_size))
+        elif d_set:
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, input_size=cfg.data.input_size))
+    return cfg
+
+
+def _replace_path(node, parts, value):
+    if len(parts) == 1:
+        return dataclasses.replace(node, **{parts[0]: value})
+    child = getattr(node, parts[0])
+    return dataclasses.replace(node, **{parts[0]: _replace_path(child, parts[1:], value)})

@@ -1,0 +1,43 @@
+"""Device and dtype helper.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, as the tests do). With no card and no device given,
+:func:`resolve_device` raises: nothing carries on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless one is given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU explicitly"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
+
+
+def set_precision(compute_dtype: str = "float32") -> None:
+    """Pin float32 math to true float32.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
+    ``torch.backends.cudnn.allow_tf32 = False``: cuDNN runs float32
+    convolutions in TF32 by default, which keeps about three decimal
+    digits. This is the counterpart of the JAX package's
+    ``precision="highest"`` for float32 convolutions (ops/conv.py:55).
+    """
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r} is not ported yet: ROADMAP.md "
+            "Queue 1 item 1 (the bf16 slice) brings it"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

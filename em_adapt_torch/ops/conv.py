@@ -1,0 +1,35 @@
+"""Convolution with TF-SAME semantics, NCHW activations and OIHW weights.
+
+The reference uses ``tf.nn.conv2d(padding="SAME")`` and, for the conv5
+block (rate 2) and fc6 (4x4 kernel, rate 4), ``tf.nn.atrous_conv2d``
+(reference deeplab.py:58, :65, :92, :95). TF pads SAME for the effective
+(dilated) kernel extent with the extra element on the high side; that is
+what :func:`same_padding` computes. The product itself is PyTorch's
+convolution (cuDNN on the card), as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def same_padding(k: int, rate: int = 1) -> tuple[int, int]:
+    """(low, high) padding of a stride-1 TF SAME conv of kernel ``k``."""
+    total = (k - 1) * rate
+    return total // 2, total - total // 2
+
+
+def conv2d_same(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *, rate: int = 1
+) -> torch.Tensor:
+    """Stride-1 SAME conv. x [B,Cin,H,W], w [Cout,Cin,kh,kw], atrous ``rate``.
+
+    Symmetric padding goes to the convolution itself (no padded copy of
+    the activation); an asymmetric one (an even kernel at an odd effective
+    extent) is an explicit ``F.pad`` with the extra element high.
+    """
+    (top, bottom), (left, right) = (same_padding(k, rate) for k in w.shape[2:])
+    if top == bottom and left == right:
+        return F.conv2d(x, w, b, padding=(top, left), dilation=rate)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, dilation=rate)

@@ -1,0 +1,153 @@
+"""The E-step kernel K1: CUDA wrapper and its plain PyTorch version.
+
+``estep_kernel`` runs the adaptive-bias E-step on scores laid out
+``[B, C, HW]`` (the model's NCHW logits, reshaped without a copy). On a
+CUDA tensor it launches the hand-written kernel of ``csrc/estep.cu``,
+which replaces the TPU kernel ``em_adapt_tpu/ops/estep_pallas.py::_kernel``;
+on a CPU tensor it runs :func:`estep_plain`, the same bit bisection in
+plain PyTorch. There is no fallback from one to the other.
+
+Inputs computed outside the kernel, as the JAX side computes them
+(estep_pallas.py:218-239): ``k_bg``/``k_fg`` = ``int(hw * p)``, the visit
+schedule as an int32 array, and ``gmax``, the max of the whole batch's
+scores before suppression, as a one-element device tensor (a multi-GPU
+run all-reduces it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: Kernel launches made by :func:`estep_kernel` (plain runs not counted).
+launches = 0
+
+#: Dynamic shared memory a block may use on Hopper (227 KB opt-in).
+MAX_SMEM_BYTES = 232448
+
+
+def _lib() -> ctypes.CDLL:
+    from em_adapt_torch.utils.build import load
+
+    lib = load("estep")
+    if not getattr(lib, "_em_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.em_estep_launch.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
+        lib.em_estep_launch.restype = i
+        lib.em_estep_smem_bytes.argtypes = [i, i]
+        lib.em_estep_smem_bytes.restype = ctypes.c_size_t
+        lib.em_estep_max_pixels.restype = i
+        lib.em_cuda_error_string.argtypes = [i]
+        lib.em_cuda_error_string.restype = ctypes.c_char_p
+        lib._em_typed = True
+    return lib
+
+
+def estep_plain(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    visit: torch.Tensor,
+    gmax: torch.Tensor,
+    *,
+    k_bg: int,
+    k_fg: int,
+    suppress: bool,
+    margin: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in plain PyTorch; same arguments and results
+    as :func:`estep_kernel`: (biased scores [B,C,HW], thresholds [B,L])."""
+    b, c, hw = scores.shape
+    f = scores.clone()
+    classes = torch.arange(c, device=scores.device)
+    tags = (labels[:, None, :] == classes[None, :, None]).any(2)  # [B,C]
+    if suppress:
+        lift = torch.where(tags, torch.zeros_like(gmax), gmax)[:, :, None]
+        pmin = (f + lift).amin(1, keepdim=True)
+        f = torch.where(~tags[:, :, None] & (f > pmin), pmin - margin, f)
+    rowmax = f.amax(1)  # [B,HW]
+    inv_hw = torch.tensor(1.0 / hw, dtype=torch.float32)
+    before = rowmax.sum(1) * inv_hw
+    schedule = visit.tolist()
+    thresholds = torch.zeros(b, len(schedule), dtype=torch.float32, device=scores.device)
+    for t, j in enumerate(schedule):
+        dbits = (rowmax - f[:, j]).view(torch.int32)
+        k1 = (k_bg if j == 0 else k_fg) + 1
+        cand = torch.zeros(b, 1, dtype=torch.int32, device=scores.device)
+        for bit in range(30, -1, -1):
+            count = (dbits <= (cand | ((1 << bit) - 1))).sum(1, keepdim=True)
+            cand = torch.where(count >= k1, cand, cand | (1 << bit))
+        th = cand[:, 0].view(torch.float32) * tags[:, j]
+        thresholds[:, t] = th
+        f[:, j] += th[:, None]
+        rowmax = torch.maximum(rowmax, f[:, j])
+    after = rowmax.sum(1) * inv_hw
+    return f + (before - after)[:, None, None], thresholds
+
+
+def estep_kernel(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    visit: torch.Tensor,
+    gmax: torch.Tensor,
+    *,
+    k_bg: int,
+    k_fg: int,
+    suppress: bool,
+    margin: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Adaptive-bias E-step. scores [B,C,HW] f32, labels [B,HW] int32
+    (uint8-cast), visit [L] int32, gmax [1] f32.
+
+    Returns (biased scores [B,C,HW] f32, thresholds [B,L] f32: the bias
+    visit t added to its class, 0 where the class is absent).
+    """
+    if scores.device.type == "cpu":
+        return estep_plain(
+            scores, labels, visit, gmax, k_bg=k_bg, k_fg=k_fg,
+            suppress=suppress, margin=margin,
+        )
+    if scores.device.type != "cuda":
+        raise ValueError(f"estep_kernel: unsupported device {scores.device}")
+    b, c, hw = scores.shape
+    length = visit.numel()
+    dev = scores.device
+    for name, t, dtype, shape in (
+        ("scores", scores, torch.float32, (b, c, hw)),
+        ("labels", labels, torch.int32, (b, hw)),
+        ("visit", visit, torch.int32, (length,)),
+        ("gmax", gmax, torch.float32, (1,)),
+    ):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"estep_kernel: {name} must be {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"estep_kernel: {name} must be contiguous")
+    if not (0 <= k_bg < hw and 0 <= k_fg < hw):
+        raise ValueError(f"estep_kernel: ranks k_bg={k_bg}, k_fg={k_fg} outside [0, {hw})")
+    lib = _lib()
+    smem, max_pixels = lib.em_estep_smem_bytes(c, hw), lib.em_estep_max_pixels()
+    if hw > max_pixels or smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"estep_kernel: one image's state ({c} x {hw} f32, {smem} B) does "
+            f"not fit one block ({MAX_SMEM_BYTES} B of shared memory, "
+            f"{max_pixels} pixels); a multi-CTA E-step for large score maps "
+            "is ROADMAP.md Queue 1 item 5"
+        )
+    out = torch.empty_like(scores)
+    thresholds = torch.empty(b, length, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.em_estep_launch(
+            scores.data_ptr(), labels.data_ptr(), visit.data_ptr(), gmax.data_ptr(),
+            out.data_ptr(), thresholds.data_ptr(), b, c, hw, length, k_bg, k_fg,
+            int(suppress), margin, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"estep kernel launch failed: {lib.em_cuda_error_string(err).decode()} ({err})"
+        )
+    global launches
+    launches += 1
+    return out, thresholds
