@@ -4,23 +4,27 @@
     python3 chip_smoke.py [--quick] [--profile N]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
-checkout's sources, holds each against its plain PyTorch version on the
-card, drives the port's main path (full-width DeepLab-LargeFOV training
-at 321x321, batch 6, accumulation 5, f32) through ``Trainer.fit``, and
-checks what comes out. Every phase raises on failure and the script then
-exits non-zero; without a CUDA card, or without the ``em_adapt_torch``
-package beside it, it exits non-zero before printing any result.
-``--quick`` stops after the kernel checks; ``--profile N`` adds a
-torch.profiler breakdown of N more training steps.
+checkout's sources (one nvcc per source, in parallel), holds each against
+its plain PyTorch version on the card, and drives the port's two paths:
+full-width DeepLab-LargeFOV training at 321x321, batch 6, accumulation 5,
+f32, through ``Trainer.fit`` (the E-step kernel K1), and the bf16
+fixed-resolution evaluation at 321x321, eval batch 6, through
+``Evaluator.evaluate_fixed`` (the fused block1 kernel K2), then checks
+what comes out. Every phase raises on failure and the script then exits
+non-zero; without a CUDA card, or without the ``em_adapt_torch`` package
+beside it, it exits non-zero before printing any result. ``--quick``
+stops after the kernel checks; ``--profile N`` adds a torch.profiler
+breakdown of N more training steps.
 
-Output: the card's name and power limit, the build, each kernel's check
-and times, the training numbers, then a line ``{"kernels": [...]}`` and,
-last, ``{"ok": true, "device": {...}}``.
+Output: the card's name and power limit, the builds, each kernel's check
+and times, the training and evaluation numbers, then a line
+``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import glob
 import json
 import math
@@ -39,9 +43,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: compares and float adds).
 HBM_BYTES_PER_S = 3.35e12
 SIMT_OPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for K2's bound.
+BF16_TENSOR_OPS_PER_S = 989.4e12
 
 #: Training steps of the main path: two applied updates at accumulation 5.
 STEPS = 10
+#: Images of the evaluation path: 11 batches of 6, the last one padded.
+EVAL_IMAGES = 62
 
 
 def log(msg: str) -> None:
@@ -415,6 +423,266 @@ def train(device, steps: int, profile_n: int = 0) -> dict:
     return result
 
 
+def block1_case(rng: np.random.Generator, b: int, h: int, large_bias: bool, device):
+    """K2's arguments: a normalized-range bf16 input (NCHW) and He-init
+    weights (OIHW); with ``large_bias``, biases of the activations' own
+    size, which would leak relu(b) into the border if the halo were not
+    masked."""
+    import torch
+
+    x = torch.from_numpy((rng.uniform(0, 255, size=(b, 3, h, h)) - 117).astype(np.float32))
+    w1 = torch.from_numpy((rng.normal(size=(64, 3, 3, 3)) * np.sqrt(2 / 27)).astype(np.float32))
+    w2 = torch.from_numpy((rng.normal(size=(64, 64, 3, 3)) * np.sqrt(2 / 576)).astype(np.float32))
+    if large_bias:
+        b1, b2 = (torch.from_numpy(rng.uniform(20, 60, size=64).astype(np.float32)) for _ in "12")
+    else:
+        b1, b2 = (torch.from_numpy((rng.normal(size=64) * 0.1).astype(np.float32)) for _ in "12")
+    return [t.to(device) for t in (x.to(torch.bfloat16), w1, b1, w2, b2)]
+
+
+def explain_block1(name: str, args, got, want) -> int:
+    """Logs where K2 and its plain version part, layer by layer: the y1
+    values that an f32 ``F.conv2d`` (another summation order) rounds apart
+    from ``conv1_plain``'s; K2 run with w2 the identity at the centre tap
+    and b2 = 0 (its output is then the pool of its own y1) against the
+    pool of ``conv1_plain``'s y1; and K2, the plain version and the same
+    built on ``F.conv2d``'s y1 against a reference that sums conv1_2 of
+    ``conv1_plain``'s y1 in f64 (then, as K2: f32, + b2, ReLU, bf16,
+    pool). Returns the number of pooled y1 values where K2 and
+    ``conv1_plain`` differ: 0 when conv1_1, its halo and its rounding are
+    right. These launches of K2 are checks, not the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    x, w1, b1, w2, b2 = args
+    bf = torch.bfloat16
+    y1 = k2.conv1_plain(x, w1, b1)
+    y1_conv = F.relu(F.conv2d(x.float(), w1.to(bf).float(), padding=1)
+                     + b1.float()[None, :, None, None]).to(bf)
+    eye = torch.zeros_like(w2)
+    eye[range(64), range(64), 1, 1] = 1
+    pooled_y1 = k2.block1_fused(x, w1, b1, eye, torch.zeros_like(b2))
+    y1_apart = int((pooled_y1 != max_pool_same(y1, 3, 2)).sum())
+
+    def conv2_pool(y1, dt):
+        y2 = F.conv2d(y1.to(dt), w2.to(bf).to(dt), padding=1).float()
+        return max_pool_same(F.relu(y2 + b2.float()[None, :, None, None]).to(bf), 3, 2)
+
+    ref = conv2_pool(y1, torch.float64)
+    parts = [f"F.conv2d rounds {int((y1_conv != y1).sum())} of {y1.numel()} y1 values apart "
+             f"from conv1_plain", f"K2's pooled y1 differs from conv1_plain's at {y1_apart} of "
+             f"{pooled_y1.numel()} values"]
+    for who, t in (("K2", got), ("plain", want),
+                   ("plain on F.conv2d's y1", conv2_pool(y1_conv, torch.float32))):
+        st = k2.bf16_steps(t, ref)
+        diff = (t.float() - ref.float()).abs()
+        far = st > 1
+        i = int(st.argmax())
+        parts.append(f"{who} vs the f64 reference: {100 * float((st == 0).float().mean()):.4f}% "
+                     f"bit-equal, {int(far.sum())} elements > 1 step (largest |reference| "
+                     f"{float(ref.float().abs()[far].max()) if far.any() else 0:.4g}, max|diff| "
+                     f"{float(diff[far].max()) if far.any() else 0:.3e}), max {int(st.max())} "
+                     f"steps ({float(t.flatten()[i]):.6g} vs {float(ref.flatten()[i]):.6g}), "
+                     f"max|diff| {float(diff.max()):.3e}")
+    log(f"K2 {name}: " + "; ".join(parts))
+    return y1_apart
+
+
+def check_block1(device, timed: bool) -> dict:
+    """K2 against its plain version on the card: within one bf16 step per
+    element (an f32 sum of 576 products in another order may round to the
+    neighbouring bf16 value), the step taken at no less than 2^-12 of the
+    largest output (``ops/block1.py::bf16_close`` says why), at least
+    99.9% of the elements bit-equal, and its y1 exactly ``conv1_plain``'s
+    (:func:`explain_block1`, which logs where the two part). With ``timed``, its times at the main path's shape
+    (B=6, 321x321) beside the plain version, the cuDNN chain of the conv
+    path and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.ops.conv import conv2d_same
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    cases = [("B=6 321x321", 6, 321, False), ("B=1 33x33", 1, 33, False),
+             ("B=1 41x41", 1, 41, False), ("B=1 65x65", 1, 65, False),
+             ("B=2 41x41 large bias", 2, 41, True)]
+    max_err, failed = 0.0, []
+    for name, b, h, large in cases:
+        args = block1_case(np.random.default_rng(10 * h + b), b, h, large, device)
+        before = k2.launches
+        got = k2.block1_fused(*args)
+        torch.cuda.synchronize()
+        if k2.launches != before + 1:
+            raise AssertionError(f"K2 {name}: the block1 kernel was not launched")
+        want = k2.block1_plain(*args)
+        if got.shape != want.shape or got.dtype != torch.bfloat16:
+            raise AssertionError(f"K2 {name}: {got.dtype} {tuple(got.shape)} != {tuple(want.shape)}")
+        steps = k2.bf16_steps(got, want)
+        diff = (got.float() - want.float()).abs()
+        err, scale = float(diff.max()), float(want.float().abs().max())
+        worst = int(steps.max())
+        far = steps > 1
+        extra = ""
+        if far.any():
+            extra = (f"; {int(far.sum())} elements > 1 step, the largest |plain| among them "
+                     f"{float(want.float().abs()[far].max()):.3e}, their max|diff| "
+                     f"{float(diff[far].max()):.3e}")
+        equal = float((steps == 0).float().mean())
+        y1_apart = explain_block1(name, args, got, want)
+        if not bool(k2.bf16_close(got, want).all()) or equal < 0.999 or y1_apart:
+            failed.append(name)
+        max_err = max(max_err, err)
+        log(f"K2 {name}: {100 * equal:.4f}% bit-equal to plain, "
+            f"{100 * float((steps <= 1).float().mean()):.4f}% within 1 bf16 step, max "
+            f"{worst} steps, max|kernel-plain| {err:.3e} (max|plain| {scale:.3e}, "
+            f"min {float(want.float().min()):.3e}){extra}")
+    if failed:
+        raise AssertionError(f"K2 more than one bf16 step (floored) from plain, under 99.9% "
+                             f"bit-equal, or its y1 not conv1_plain's, in {failed}")
+    if not timed:
+        return dict(max_abs_err=max_err)
+
+    b, h = 6, 321
+    args = block1_case(np.random.default_rng(6), b, h, False, device)
+    x, w1, b1, w2, b2 = args
+
+    def run():
+        return k2.block1_fused(*args)
+
+    def library():
+        """The conv path's cuDNN bf16 chain for the same function (its
+        bias in bf16 after the rounding)."""
+        y = F.relu(conv2d_same(x, w1, b1, compute_dtype=torch.bfloat16))
+        y = F.relu(conv2d_same(y, w2, b2, compute_dtype=torch.bfloat16))
+        return max_pool_same(y, 3, 2)
+
+    ms = cuda_ms_per_launch(run, launches=100, reps=5, warmup=3)
+    prof_ms = profiled_kernel_ms(run, "block1_fwd_kernel", launches=20)
+    library_ms = cuda_ms_per_launch(library, launches=100, reps=5, warmup=3)
+    plain_ms = cuda_ms(lambda: k2.block1_plain(*args), reps=5, warmup=1)
+    oh = (h + 1) // 2
+    ops = 2 * 27 * 64 * h * h * b + 2 * 576 * 64 * h * h * b
+    bytes_moved = 2 * (b * 3 * h * h + b * 64 * oh * oh + 64 * 27 + 64 * 576) + 4 * 2 * 64
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    prof_text = f"{prof_ms:.4f} ms" if prof_ms is not None else "not measured"
+    log(f"K2 time B={b} {h}x{h}: kernel {ms:.4f} ms per launch (device time: 100 back-to-back "
+        f"launches between CUDA events, median of 5), profiler device time {prof_text} (mean "
+        f"of 20); cuDNN bf16 chain (library call) {library_ms:.4f} ms per call, back-to-back "
+        f"the same way; plain {plain_ms:.2f} ms (median of 5 single calls); bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({ops} FLOP at "
+        f"{BF16_TENSOR_OPS_PER_S / 1e12:.1f} TFLOP/s, {bytes_moved} B at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {ops / ms / 1e9:.1f} TFLOP/s achieved")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def evaluate(device) -> dict:
+    """The evaluation path: ``Evaluator`` at full width, bf16, 321x321,
+    eval batch 6, He init, over ``EVAL_IMAGES`` synthetic val images, once
+    with the fused block1 (K2) and once with the cuDNN conv path."""
+    import dataclasses
+
+    import torch
+
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.eval.miou import miou_from_confusion
+    from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+    from em_adapt_torch.ops import block1 as k2
+
+    base = ExperimentConfig()
+    cfgs = {impl: base.replace(model=dataclasses.replace(
+        base.model, init_scheme="he", compute_dtype="bfloat16", block1_impl=impl))
+        for impl in ("pallas", "xla")}
+    c = base.model.num_classes
+    model = build_model(cfgs["pallas"].model, 0, device)
+    conv_model = DeepLabLargeFOV(cfgs["xla"].model).to(device)
+    conv_model.load_state_dict(model.state_dict())
+    evs = {"pallas": Evaluator(cfgs["pallas"], model), "xla": Evaluator(cfgs["xla"], conv_model)}
+    data = SyntheticVOC(EVAL_IMAGES, c, seed=1)
+    bs = base.eval.batch_size
+    log(f"eval: DeepLab-LargeFOV {sum(p.numel() for p in model.parameters())} params, input "
+        f"{base.model.input_size}, eval batch {bs}, bf16, init he, {EVAL_IMAGES} images")
+    warm = np.zeros((bs, *base.model.input_size, 3), np.float32)
+    for ev in evs.values():
+        ev.predict_batch(warm)
+    torch.cuda.synchronize()
+
+    out = {}
+    for impl, ev in evs.items():
+        kept, pixels, fetch_s = [], [0], [0.0]
+
+        def batches():
+            it = batch_iterator(data, base.data, batch_size=bs, seed=0, epochs=1, train=False)
+            while True:
+                t = time.perf_counter()
+                batch = next(it, None)
+                fetch_s[0] += time.perf_counter() - t
+                if batch is None:
+                    return
+                pixels[0] += int((batch["label"] < c).sum())
+                kept.append(batch)
+                yield batch
+
+        k2.launches = 0
+        t0 = time.perf_counter()
+        cm = ev.confusion_fixed(batches())  # ends in a device-to-host copy
+        wall = time.perf_counter() - t0
+        miou, _ = miou_from_confusion(cm)
+        out[impl] = dict(cm=cm, wall=wall, pixels=pixels[0], launches=k2.launches,
+                         batches=kept, miou=miou)
+        log(f"eval {impl}: {len(kept)} batches, K2 launches {k2.launches}, confusion total "
+            f"{int(cm.sum())} of {pixels[0]} non-void pixels, mIoU {miou:.6f}, wall "
+            f"{wall:.3f} s, {EVAL_IMAGES / wall:.2f} images/s (whole window, batch fetch "
+            f"included); the host's batch fetch took {fetch_s[0]:.3f} s of it")
+    x_dev = torch.from_numpy(out["pallas"]["batches"][0]["image"]).to(device)
+    fwd = {impl: [] for impl in evs}
+    for _ in range(3):  # rounds that alternate the modes, so both see the card alike
+        for impl, ev in evs.items():
+            fwd[impl].append(cuda_ms_per_launch(lambda: ev.predict_batch(x_dev), launches=20,
+                                                reps=3, warmup=1))
+    for impl, times in fwd.items():
+        fwd_ms = statistics.median(times)
+        log(f"eval {impl}: predict_batch of a device-resident batch of {bs}: {fwd_ms:.3f} ms "
+            f"(20 back-to-back calls between CUDA events, median of 3 alternating rounds of 3: "
+            f"{', '.join(f'{t:.3f}' for t in times)}), {bs / fwd_ms * 1e3:.1f} images/s")
+    p, x = out["pallas"], out["xla"]
+    want_batches = -(-EVAL_IMAGES // bs)
+    if len(p["batches"]) != want_batches or p["launches"] != want_batches:
+        raise AssertionError(f"K2 launched {p['launches']} times in {len(p['batches'])} "
+                             f"batches, expected {want_batches}")
+    if x["launches"] != 0:
+        raise AssertionError(f"the conv path launched K2 {x['launches']} times")
+    for impl, r in out.items():
+        if int(r["cm"].sum()) != r["pixels"]:
+            raise AssertionError(f"{impl}: confusion total {int(r['cm'].sum())} != "
+                                 f"{r['pixels']} non-void pixels")
+        if not (math.isfinite(r["miou"]) and 0.0 <= r["miou"] <= 1.0):
+            raise AssertionError(f"{impl}: mIoU {r['miou']}")
+    if x["pixels"] != p["pixels"]:
+        raise AssertionError(f"pixel totals differ: {p['pixels']} vs {x['pixels']}")
+    same = total = 0
+    for batch in p["batches"]:
+        real = torch.tensor([i != "__pad__" for i in batch["id"]], device=device)
+        a, b = evs["pallas"].predict_batch(batch["image"]), evs["xla"].predict_batch(batch["image"])
+        same += int(((a == b) & real[:, None, None]).sum())
+        total += int(real.sum()) * a.shape[1] * a.shape[2]
+    agree = same / total
+    log(f"eval: K2 and cuDNN block1 predict the same class at {100 * agree:.4f}% of "
+        f"{total} pixels; mIoU {p['miou']:.6f} vs {x['miou']:.6f}")
+    if agree < 0.99:
+        raise AssertionError(f"K2 and cuDNN block1 agree at only {100 * agree:.4f}% of pixels")
+    return dict(launches=p["launches"], images_per_s=EVAL_IMAGES / p["wall"],
+                conv_images_per_s=EVAL_IMAGES / x["wall"], agree=agree)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--quick", action="store_true", help="stop after the kernel checks")
@@ -441,18 +709,23 @@ def main(argv=None) -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    sources = ("estep", "block1_fwd")
     t0 = time.perf_counter()
-    build.build("estep")
-    log(f"build: csrc/estep.cu in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_logs.get("estep", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    with cf.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        list(pool.map(build.build, sources))
+    log(f"build: csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     k1_result = check_estep(device)
+    k2_result = check_block1(device, timed=not args.quick)
     if args.quick:
         return 0
     check_model_small_input(device)
     train_result = train(device, STEPS, args.profile)
+    eval_result = evaluate(device)
     t6 = k1_result["timing"][6]
     kernels = [{
         "name": "estep",
@@ -466,6 +739,18 @@ def main(argv=None) -> int:
         "bound_ms": t6["bound_ms"],
         "bound_by": t6["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "block1_fwd",
+        "route": "cuda",
+        "source": "em_adapt_torch/csrc/block1_fwd.cu",
+        "replaces": "em_adapt_tpu/ops/block1_pallas.py:352",
+        "launches": eval_result["launches"],
+        "max_abs_err": k2_result["max_abs_err"],
+        "ms": k2_result["ms"],
+        "plain_ms": k2_result["plain_ms"],
+        "bound_ms": k2_result["bound_ms"],
+        "bound_by": k2_result["bound_by"],
+        "library_ms": k2_result["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

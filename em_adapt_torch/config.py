@@ -1,11 +1,11 @@
 """Typed configuration tree for the PyTorch port.
 
 A copy of the dataclasses of ``em_adapt_tpu/config.py`` with the fields
-the training slice reads, and the same defaults: ``ExperimentConfig()``
+the ported slices read, and the same defaults: ``ExperimentConfig()``
 is the reference recipe (f32, batch 6, accumulation 5, 321x321 input, 21
 classes). Fields of later slices are added with them. Values the port
-does not run yet are rejected by :func:`check_supported`, which names the
-ROADMAP.md item that brings them.
+does not run yet in a mode (training or evaluation) are rejected by
+:func:`check_supported`, which names the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -48,9 +48,11 @@ class ModelConfig:
     conv5_rate: int = 2
     fc6_rate: int = 4
     fc6_channels: int = 4096
+    #: "float32", or "bfloat16" (one cast at the model's entry, f32 logits).
     compute_dtype: str = "float32"
     remat: bool = False
-    #: "auto" and "xla" both run the plain conv path in this port.
+    #: "auto" and "xla" run the conv path; "pallas" runs the fused block1
+    #: forward (the CUDA kernel K2 on the card), at inference only.
     block1_impl: str = "auto"
     #: Caffe-converted ``init.npy`` (reference deeplab.py:293); None = random.
     init_model_path: str | None = None
@@ -94,47 +96,69 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Prediction + mIoU (``em_adapt_tpu/config.py:271-294``); the CRF
+    fields come with the CRF (ROADMAP.md Queue 1 item 7)."""
+
+    batch_size: int = 6
+    use_crf: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     estep: EStepConfig = dataclasses.field(default_factory=EStepConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
 
 
-def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise for a config value this slice of the port does not run."""
+def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
+    """Raise for a config value this port does not run in ``mode``
+    ("train" or "eval")."""
+    if mode not in ("train", "eval"):
+        raise ValueError(f"mode={mode!r}: expected 'train' or 'eval'")
+    train = mode == "train"
+    bf16_training = "Queue 1 item 1b (bf16 training with the block1 backward K3)"
     unsupported = [
-        (cfg.model.compute_dtype != "float32",
-         f"model.compute_dtype={cfg.model.compute_dtype!r}",
-         "Queue 1 item 1 (the bf16 slice)"),
-        (cfg.model.block1_impl == "pallas", "model.block1_impl='pallas'",
-         "Queue 1 item 1 and Queue 2 K2/K3 (the fused block1 kernels)"),
-        (cfg.model.remat, "model.remat=True", "Queue 1 item 1 (the bf16 slice)"),
-        (cfg.estep.impl == "native", "estep.impl='native'",
+        (train and cfg.model.compute_dtype == "bfloat16",
+         "training with model.compute_dtype='bfloat16'", bf16_training),
+        (train and cfg.model.block1_impl == "pallas",
+         "training with model.block1_impl='pallas'", bf16_training),
+        (cfg.model.remat, "model.remat=True", bf16_training),
+        (train and cfg.estep.impl == "native", "estep.impl='native'",
          "Queue 1 item 4 (the native E-step binding)"),
-        (cfg.estep.method == "fixed", "estep.method='fixed'",
+        (train and cfg.estep.method == "fixed", "estep.method='fixed'",
          "Queue 1 item 3 (EM-Fixed)"),
-        (cfg.optim.lr_multipliers, "optim.lr_multipliers=True",
+        (train and cfg.optim.lr_multipliers, "optim.lr_multipliers=True",
          "Queue 1 item 2 (trainer loop, checkpoint and resume)"),
+        (not train and cfg.eval.use_crf, "eval.use_crf=True",
+         "Queue 1 item 7 (the VOC protocol and the CRF)"),
     ]
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP.md {item} brings it"
             )
+    if cfg.model.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"model.compute_dtype={cfg.model.compute_dtype!r}: expected 'float32' or 'bfloat16'"
+        )
+    if cfg.model.block1_impl not in ("auto", "xla", "pallas"):
+        raise ValueError(
+            f"model.block1_impl={cfg.model.block1_impl!r}: expected 'auto', 'xla' or 'pallas'"
+        )
+    if not train:
+        return
     if cfg.estep.method != "adaptive":
         raise ValueError(f"estep.method={cfg.estep.method!r}: expected 'adaptive'")
     if cfg.estep.impl not in ("auto", "jax", "pallas"):
         raise ValueError(
             f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax' or 'pallas'"
-        )
-    if cfg.model.block1_impl not in ("auto", "xla"):
-        raise ValueError(
-            f"model.block1_impl={cfg.model.block1_impl!r}: expected 'auto' or 'xla'"
         )
 
 

@@ -1,4 +1,4 @@
-"""Host-side train augmentation with TF1-exact resize grids.
+"""Host-side train augmentation and eval preprocessing, TF1-exact grids.
 
 A numpy copy of ``em_adapt_tpu/data/augment.py`` (reference
 dataset.py:147-199): random scale U(0.75, 1.25) with TF1's truncating
@@ -118,3 +118,18 @@ def augment_train(
         lab = lab[:, ::-1]
 
     return _finalize_wire(img, lab, wire_dtype)
+
+
+def preprocess_eval(
+    img: np.ndarray,
+    label: np.ndarray,
+    *,
+    input_size: tuple[int, int] = (321, 321),
+    wire_dtype: str = "float32",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Eval-time preprocessing: fixed resize + BGR + mean, no augmentation
+    (reference dataset.py:130). ``wire_dtype="uint8"`` defers the BGR+mean
+    to the device (see :func:`augment_train`)."""
+    lab = label[:, :, None] if label.ndim == 2 else label
+    return _finalize_wire(resize_bilinear_np(img, input_size),
+                          resize_nearest_np(lab, input_size), wire_dtype)

@@ -1,8 +1,9 @@
 """Input pipeline: synthetic VOC-shaped data and the seeded batch iterator.
 
 Copies of ``SyntheticVOC`` and of the single-process path of
-``batch_iterator`` in ``em_adapt_tpu/data/pipeline.py``: the same seed
-gives bit-identical batches in both packages. The VOC disk reader,
+``batch_iterator`` in ``em_adapt_tpu/data/pipeline.py`` (train batches,
+and eval batches with a padded tail): the same seed gives bit-identical
+batches in both packages. The VOC disk reader,
 process sharding and the device prefetcher come with later slices
 (ROADMAP.md Queue 1 item 2).
 """
@@ -15,7 +16,7 @@ from typing import Iterator
 import numpy as np
 
 from em_adapt_torch.config import DataConfig
-from em_adapt_torch.data.augment import augment_train, resize_nearest_np
+from em_adapt_torch.data.augment import augment_train, preprocess_eval, resize_nearest_np
 
 
 class SyntheticVOC:
@@ -48,31 +49,40 @@ def batch_iterator(
     batch_size: int,
     seed: int = 0,
     epochs: int | None = None,
+    train: bool = True,
     num_workers: int | None = None,
     start_step: int = 0,
 ) -> Iterator[dict]:
-    """Yield train batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list}.
+    """Yield batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list}.
 
-    Each epoch's order is a seeded permutation; each sample's augmentation
-    draws from its own child generator keyed by (seed, epoch, index), so
-    batches do not depend on worker scheduling. ``start_step`` skips the
-    first batches without decoding them. A final partial batch is dropped.
+    Training (``train=True``): each epoch's order is a seeded permutation;
+    each sample's augmentation draws from its own child generator keyed by
+    (seed, epoch, index), so batches do not depend on worker scheduling;
+    a final partial batch is dropped. Evaluation (``train=False``): the
+    dataset's order and :func:`preprocess_eval`; a final partial batch is
+    padded to ``batch_size`` with zero images, all-void (255) labels and
+    ids ``"__pad__"``, so no image leaves the metric and the batch shape
+    stays fixed. ``start_step`` skips the first batches without decoding
+    them.
     """
     n = len(dataset)
     num_workers = num_workers if num_workers is not None else cfg.num_workers
-    if n < batch_size:
+    if train and n < batch_size:
         raise ValueError(
-            f"dataset has {n} images < batch_size {batch_size}: every batch "
-            "would be dropped"
+            f"dataset has {n} images < batch_size {batch_size}: every training "
+            "batch would be dropped"
         )
     if start_step < 0:
         raise ValueError(f"start_step must be >= 0, got {start_step}")
-    batches_per_epoch = n // batch_size
+    batches_per_epoch = n // batch_size if train else max(-(-n // batch_size), 1)
     epoch = start_step // batches_per_epoch
     to_skip = start_step % batches_per_epoch
 
     def load_one(epoch: int, idx: int) -> tuple[np.ndarray, np.ndarray]:
         img, label = dataset.load_raw(idx)
+        if not train:
+            return preprocess_eval(img, label, input_size=cfg.input_size,
+                                   wire_dtype=cfg.wire_dtype)
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, idx, 0xA46]))
         img_p, lab_p = augment_train(
             img,
@@ -91,17 +101,29 @@ def batch_iterator(
     pool = cf.ThreadPoolExecutor(max_workers=max(1, num_workers))
     try:
         while epochs is None or epoch < epochs:
-            perm = np.random.default_rng(np.random.SeedSequence([seed, epoch])).permutation(n)
-            for start in range(0, n - batch_size + 1, batch_size):
+            if train:
+                perm = np.random.default_rng(np.random.SeedSequence([seed, epoch])).permutation(n)
+            else:
+                perm = np.arange(n)
+            for start in range(0, n, batch_size):
+                idxs = perm[start : start + batch_size]
+                if len(idxs) < batch_size and train:
+                    continue
                 if to_skip > 0:
                     to_skip -= 1
                     continue
-                idxs = perm[start : start + batch_size]
                 results = list(pool.map(lambda i: load_one(epoch, int(i)), idxs))
+                ids = [dataset.ids[int(i)] for i in idxs]
+                if len(idxs) < batch_size:
+                    # -1 rows of the JAX package: a zero image, an all-void label.
+                    pad = batch_size - len(idxs)
+                    img0, lab0 = results[0]
+                    results += [(np.zeros_like(img0), np.full_like(lab0, 255))] * pad
+                    ids += ["__pad__"] * pad
                 yield {
                     "image": np.stack([r[0] for r in results]),
                     "label": np.stack([r[1] for r in results]),
-                    "id": [dataset.ids[int(i)] for i in idxs],
+                    "id": ids,
                 }
             epoch += 1
     finally:

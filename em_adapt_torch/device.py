@@ -26,18 +26,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def set_precision(compute_dtype: str = "float32") -> None:
-    """Pin float32 math to true float32.
+    """Pin float32 math to true float32, for either compute dtype.
 
     Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False``: cuDNN runs float32
     convolutions in TF32 by default, which keeps about three decimal
     digits. This is the counterpart of the JAX package's
     ``precision="highest"`` for float32 convolutions (ops/conv.py:55).
+    Under "bfloat16" the model's convolutions take bf16 operands, and the
+    f32 convolutions left (the fused block1's plain version) stay f32.
     """
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} is not ported yet: ROADMAP.md "
-            "Queue 1 item 1 (the bf16 slice) brings it"
-        )
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected 'float32' or 'bfloat16'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

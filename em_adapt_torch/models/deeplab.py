@@ -10,6 +10,13 @@ Inside, activations are NCHW and weights OIHW. At the boundary the port
 keeps the JAX package's layouts: parameters as ``{layer: {"w": HWIO,
 "b": [C]}}`` (:func:`init_params`, :mod:`em_adapt_torch.models.convert`)
 and logits as NHWC float32 (a view of the NCHW result).
+
+``compute_dtype="bfloat16"`` keeps the whole trunk in bf16 as the JAX
+package does (deeplab.py:349-352): one cast at the entry, the weights
+cast per conv, f32 logits out. ``block1_impl="pallas"`` runs block 1
+through the fused forward (:mod:`em_adapt_torch.ops.block1`, the CUDA
+kernel K2 on the card), at inference only; ``"auto"`` picks K2 wherever
+it applies on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 
 from em_adapt_torch.config import ModelConfig
 from em_adapt_torch.data.augment import normalize_uint8
+from em_adapt_torch.ops.block1 import block1_fused, block1_supported
 from em_adapt_torch.ops.conv import conv2d_same
 from em_adapt_torch.ops.pooling import max_pool_same
 from em_adapt_torch.ops.resize import resize_bilinear_tf
@@ -131,6 +139,15 @@ def init_params(
     return params
 
 
+def build_model(cfg: ModelConfig, seed: int, device: torch.device) -> "DeepLabLargeFOV":
+    """The model with fresh parameters on ``device``: the Caffe init.npy of
+    ``cfg.init_model_path`` or the ``cfg.init_scheme`` draw, made on the
+    CPU from ``seed`` so that a seed gives the same weights everywhere."""
+    init_model = load_caffe_init(cfg.init_model_path) if cfg.init_model_path else None
+    params = init_params(torch.Generator().manual_seed(seed), cfg, init_model)
+    return DeepLabLargeFOV(cfg).load_params(params).to(device)
+
+
 def load_caffe_init(path: str) -> dict[str, Any]:
     """The Caffe-converted init.npy: {layer: {"w": HWIO, "b": [C]}}
     (np.load latin1 pickle, reference deeplab.py:126-129)."""
@@ -159,8 +176,8 @@ class _Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout))
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_same(x, self.weight, self.bias, rate=self.rate)
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+        return conv2d_same(x, self.weight, self.bias, rate=self.rate, compute_dtype=compute_dtype)
 
 
 class DeepLabLargeFOV(nn.Module):
@@ -184,6 +201,45 @@ class DeepLabLargeFOV(nn.Module):
         self.load_state_dict(from_jax_params(params))
         return self
 
+    def _block1_mode(self, h: int, w: int, train: bool, device: torch.device) -> str:
+        """"pallas" (the fused block1 forward) or "xla" (the conv path).
+        "auto" picks the fused forward wherever its kernel K2 applies, as it
+        is the faster on the H100 (PERF.md): inference on the card in bf16
+        at full width, a square odd input, no gradient to the block's
+        weights; elsewhere, the CPU included, the conv path. "pallas" forces
+        it and raises where it cannot run, by the JAX package's rules
+        (deeplab.py:224-269): a square odd input, inference (K3, the
+        backward, is ROADMAP.md Queue 1 item 1b) and bf16 on the card."""
+        impl = self.cfg.block1_impl
+        if impl == "xla":
+            return "xla"
+        if impl == "auto":
+            c1, c2 = self.layers["conv1_1"], self.layers["conv1_2"]
+            needs_grad = torch.is_grad_enabled() and any(
+                p.requires_grad for p in (c1.weight, c1.bias, c2.weight, c2.bias))
+            fits = (not train and not needs_grad and device.type == "cuda"
+                    and self.cfg.compute_dtype == "bfloat16" and c1.weight.shape[0] == 64
+                    and block1_supported(h, w))
+            return "pallas" if fits else "xla"
+        if impl != "pallas":
+            raise ValueError(f"model.block1_impl={impl!r}: expected 'auto', 'xla' or 'pallas'")
+        if not block1_supported(h, w):
+            raise ValueError(
+                f"model.block1_impl='pallas' does not support input {h}x{w} "
+                "(needs square odd sizes); use 'xla'"
+            )
+        if train:
+            raise NotImplementedError(
+                "model.block1_impl='pallas' in training needs the block1 backward K3: "
+                "ROADMAP.md Queue 1 item 1b brings it"
+            )
+        if device.type == "cuda" and self.cfg.compute_dtype != "bfloat16":
+            raise ValueError(
+                "model.block1_impl='pallas' on the card requires compute_dtype='bfloat16' "
+                "(the kernel computes in bf16); use 'xla' or 'auto'"
+            )
+        return "pallas"
+
     def forward(
         self,
         x: torch.Tensor,
@@ -196,20 +252,28 @@ class DeepLabLargeFOV(nn.Module):
         is raw RGB and is normalized here, on x's device. In training,
         dropout masks come from ``masks`` (two bool NCHW tensors, after
         relu6 and relu7) or are drawn from ``generator``.
-        Returns logits [B, ceil(H/8), ceil(W/8), C] (NHWC view)."""
+        Returns f32 logits [B, ceil(H/8), ceil(W/8), C] (NHWC view)."""
         if train and masks is None and generator is None:
             raise ValueError("train=True needs a dropout generator or masks")
+        cdt = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
         h = normalize_uint8(x).permute(0, 3, 1, 2).contiguous()
-        for name, *_ in vgg_conv_specs(self.cfg):
-            h = F.relu(self.layers[name](h), inplace=True)
+        if cdt is not None:
+            h = h.to(cdt)
+        specs = vgg_conv_specs(self.cfg)
+        if self._block1_mode(h.shape[2], h.shape[3], train, h.device) == "pallas":
+            c1, c2 = self.layers["conv1_1"], self.layers["conv1_2"]
+            h = block1_fused(h, c1.weight, c1.bias, c2.weight, c2.bias)
+            specs = specs[2:]
+        for name, *_ in specs:
+            h = F.relu(self.layers[name](h, cdt), inplace=True)
             if name in POOLS:
                 h = max_pool_same(h, 3, POOLS[name])
         keep = self.cfg.dropout_keep_prob
         for i, name in enumerate(("fc6", "fc7")):
-            h = F.relu(self.layers[name](h), inplace=True)
+            h = F.relu(self.layers[name](h, cdt), inplace=True)
             if train:
                 h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[i])
-        return self.layers["fc8"](h).permute(0, 2, 3, 1)
+        return self.layers["fc8"](h, cdt).float().permute(0, 2, 3, 1)
 
     def predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Bilinear (TF1 grid) upsampled logits at input resolution and

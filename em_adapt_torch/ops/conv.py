@@ -21,14 +21,29 @@ def same_padding(k: int, rate: int = 1) -> tuple[int, int]:
 
 
 def conv2d_same(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *, rate: int = 1
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    rate: int = 1,
+    compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Stride-1 SAME conv. x [B,Cin,H,W], w [Cout,Cin,kh,kw], atrous ``rate``.
 
     Symmetric padding goes to the convolution itself (no padded copy of
     the activation); an asymmetric one (an even kernel at an odd effective
     extent) is an explicit ``F.pad`` with the extra element high.
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) follows the JAX package's
+    bf16 semantics (``em_adapt_tpu/ops/conv.py:45-68``): x and w are cast,
+    the conv output is rounded to x's incoming dtype, then the bias,
+    rounded to that dtype, is added in it. The bias stays out of
+    ``F.conv2d``, where cuDNN would add it in f32 before the rounding.
     """
+    if compute_dtype is not None:
+        orig = x.dtype
+        y = conv2d_same(x.to(compute_dtype), w.to(compute_dtype), rate=rate).to(orig)
+        return y if b is None else y + b.to(orig)[:, None, None]
     (top, bottom), (left, right) = (same_padding(k, rate) for k in w.shape[2:])
     if top == bottom and left == right:
         return F.conv2d(x, w, b, padding=(top, left), dilation=rate)

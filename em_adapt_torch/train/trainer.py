@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from em_adapt_torch.config import ExperimentConfig, check_supported
 from em_adapt_torch.device import resolve_device, set_precision
-from em_adapt_torch.models.deeplab import DeepLabLargeFOV, init_params, load_caffe_init
+from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
 from em_adapt_torch.ops import estep_kernel as k1
 from em_adapt_torch.ops.estep import estep_labels, make_class_orders
 from em_adapt_torch.ops.resize import resize_nearest_tf
@@ -120,12 +120,7 @@ class Trainer:
         """Fresh parameters (drawn on the CPU from ``seed``, so a seed gives
         the same weights on every device), zeroed optimizer, step 0."""
         seed = self.cfg.train.seed if seed is None else seed
-        init_model = (
-            load_caffe_init(self.cfg.model.init_model_path)
-            if self.cfg.model.init_model_path else None
-        )
-        params = init_params(torch.Generator().manual_seed(seed), self.cfg.model, init_model)
-        model = DeepLabLargeFOV(self.cfg.model).load_params(params).to(self.device)
+        model = build_model(self.cfg.model, seed, self.device)
         model.train()
         optimizer = AccumulatingSGD(model.parameters(), self.cfg.optim, self.steps_per_epoch)
         generator = torch.Generator(self.device).manual_seed(seed + 1)

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the E-step kernel K1 against its plain
-version and the reference goldens. Every test carries the ``gpu`` marker
-and skips without a card (a CUDA kernel has no CPU mode).
+version and the reference goldens, and the fused block1 forward K2
+against its plain version. Every test carries the ``gpu`` marker and
+skips without a card (a CUDA kernel has no CPU mode).
 
 The file needs neither JAX nor the shared conftest, so on a machine with
 a card and no JAX it runs as:
@@ -22,7 +23,7 @@ FIXTURES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "fixtures", 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the E-step kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -88,3 +89,81 @@ def test_cuda_kernel_rejects_state_larger_than_shared_memory(cuda_device):
     o = make_class_orders(torch.Generator(cuda_device).manual_seed(0), 5, 21)
     with pytest.raises(ValueError, match="ROADMAP"):
         estep_bisect(s, lab, o)
+
+
+def _block1_case(g, b, h, large_bias, device):
+    """A normalized-range bf16 input (NCHW) and He-init weights (OIHW);
+    with ``large_bias`` biases of the activations' own size, which would
+    leak relu(b) into the border if the kernel did not mask its halo."""
+    x = torch.from_numpy((g.uniform(0, 255, size=(b, 3, h, h)) - 117).astype(np.float32))
+    w1 = torch.from_numpy((g.normal(size=(64, 3, 3, 3)) * np.sqrt(2 / 27)).astype(np.float32))
+    w2 = torch.from_numpy((g.normal(size=(64, 64, 3, 3)) * np.sqrt(2 / 576)).astype(np.float32))
+    if large_bias:
+        b1, b2 = (torch.from_numpy(g.uniform(20, 60, size=64).astype(np.float32)) for _ in "12")
+    else:
+        b1, b2 = (torch.from_numpy((g.normal(size=64) * 0.1).astype(np.float32)) for _ in "12")
+    return [t.to(device) for t in (x.to(torch.bfloat16), w1, b1, w2, b2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,large_bias", [(1, 33, False), (1, 41, False), (1, 65, False),
+                                            (6, 321, False), (2, 41, True)])
+def test_block1_kernel_matches_plain(cuda_device, b, h, large_bias):
+    """K2 against block1_plain on the same card: within one bf16 step per
+    element (an f32 sum in another order may round to the neighbouring
+    bf16 value), the step taken at no less than 2^-12 of the largest
+    output (see ops/block1.py::bf16_close); bit-equal almost everywhere;
+    with w2 the identity at the centre tap and b2 = 0, the pool of y1
+    bit-equal to that of conv1_plain. Odd edge tiles and a large positive
+    bias included."""
+    from em_adapt_torch.device import set_precision
+    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    set_precision("bfloat16")  # the plain version's f32 convolutions stay f32
+    args = _block1_case(np.random.default_rng(h + b), b, h, large_bias, cuda_device)
+    before = k2.launches
+    got = k2.block1_fused(*args)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    want = k2.block1_plain(*args)
+    assert got.shape == want.shape == (b, 64, (h + 1) // 2, (h + 1) // 2)
+    assert got.dtype == torch.bfloat16
+    assert bool(k2.bf16_close(got, want).all())
+    assert float((k2.bf16_steps(got, want) == 0).float().mean()) > 0.999
+    x, w1, b1, w2, b2 = args
+    eye = torch.zeros_like(w2)
+    eye[range(64), range(64), 1, 1] = 1
+    pooled_y1 = k2.block1_fused(x, w1, b1, eye, torch.zeros_like(b2))
+    assert torch.equal(pooled_y1, max_pool_same(k2.conv1_plain(x, w1, b1), 3, 2))
+
+
+@pytest.mark.gpu
+def test_auto_block1_runs_the_kernel_at_inference(cuda_device):
+    """block1_impl="auto" at full width in bf16 launches K2 once per
+    forward under no_grad, and not where a weight needs a gradient."""
+    from em_adapt_torch.config import ModelConfig
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, init_params
+    from em_adapt_torch.ops import block1 as k2
+
+    cfg = ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8,
+                      compute_dtype="bfloat16", init_scheme="he")
+    model = DeepLabLargeFOV(cfg).load_params(init_params(torch.Generator(), cfg)).to(cuda_device)
+    x = torch.zeros(1, 33, 33, 3, device=cuda_device)
+    before = k2.launches
+    with torch.no_grad():
+        assert model(x).shape == (1, 5, 5, 4)
+    assert k2.launches == before + 1
+    model(x)
+    assert k2.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_pallas_block1_needs_bf16_on_the_card(cuda_device):
+    from em_adapt_torch.config import ModelConfig
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, init_params
+
+    cfg = ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8, block1_impl="pallas")
+    model = DeepLabLargeFOV(cfg).load_params(init_params(torch.Generator(), cfg)).to(cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
+        model(torch.zeros(1, 33, 33, 3, device=cuda_device))

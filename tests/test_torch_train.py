@@ -249,6 +249,12 @@ def test_config_defaults_match_jax_and_unported_values_raise():
         bad = pcfg.apply_overrides(pcfg.ExperimentConfig(), [override])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pcfg.check_supported(bad)
+    # Training with bf16 or the fused block1 waits for K3; evaluation runs them.
+    for override in ("model.compute_dtype=bfloat16", "model.block1_impl=pallas"):
+        cfg = pcfg.apply_overrides(pcfg.ExperimentConfig(), [override])
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
+            pcfg.check_supported(cfg, "train")
+        pcfg.check_supported(cfg, "eval")
 
 
 def test_entry_points_need_a_device_choice(monkeypatch, capsys):
