@@ -335,8 +335,9 @@ def profile_steps(trainer, state, batches, steps: int) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        if e.key.startswith("aten::"):
-            continue  # an operator row repeats the device time of its kernels
+        kind = getattr(e, "device_type", None)
+        if e.key.startswith("aten::") or (kind is not None and "CUDA" not in str(kind)):
+            continue  # an operator's (or autograd Function's) row repeats its kernels' time
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -350,23 +351,36 @@ def profile_steps(trainer, state, batches, steps: int) -> None:
         log(f"profile: {ms:9.3f} ms/step  {count:4d}/step  {key[:110]}")
 
 
-def train(device, steps: int, profile_n: int = 0) -> dict:
-    """The main path: Trainer.fit at the reference recipe, full width."""
+def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
+    """A main path: Trainer.fit at the reference recipe, full width, in f32
+    (K1) or with ``bf16`` in bf16 with the fused block 1 (K1, K2 and K3,
+    each once a step); then, in bf16, one more step without and one with
+    ``model.remat``, each with its own peak memory."""
+    import dataclasses
+
     import torch
 
     from em_adapt_torch.config import ExperimentConfig
     from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.ops import block1 as k23
     from em_adapt_torch.ops import estep_kernel as k1
     from em_adapt_torch.train.trainer import Trainer
 
     cfg = ExperimentConfig()
-    data = SyntheticVOC(cfg.train.batch_size * (steps + profile_n), cfg.model.num_classes, seed=0)
+    if bf16:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                                                    block1_impl="pallas"))
+    tag = "train bf16" if bf16 else "train f32"
+    extra = 2 if bf16 else 0
+    data = SyntheticVOC(cfg.train.batch_size * (steps + profile_n + extra), cfg.model.num_classes,
+                        seed=0)
     trainer = Trainer(cfg, device=device, steps_per_epoch=len(data) // cfg.train.batch_size)
     state = trainer.init_state()
     params = list(state.model.parameters())
-    log(f"train: DeepLab-LargeFOV {sum(p.numel() for p in params)} params, input "
+    log(f"{tag}: DeepLab-LargeFOV {sum(p.numel() for p in params)} params, input "
         f"{cfg.model.input_size}, batch {cfg.train.batch_size}, accum {cfg.optim.accum_steps}, "
-        f"keep {cfg.model.dropout_keep_prob}, f32, init {cfg.model.init_scheme}")
+        f"keep {cfg.model.dropout_keep_prob}, {cfg.model.compute_dtype}, block1 "
+        f"{cfg.model.block1_impl}, init {cfg.model.init_scheme}")
     with torch.no_grad():
         l2 = float(state.model.weight_l2())
     batches = batch_iterator(data, cfg.data, batch_size=cfg.train.batch_size, seed=0)
@@ -381,46 +395,180 @@ def train(device, steps: int, profile_n: int = 0) -> dict:
                 q.copy_(p)
 
     torch.cuda.reset_peak_memory_stats(device)
-    k1.launches = 0
+    k1.launches = k23.launches = k23.bwd_launches = 0
     t0 = time.perf_counter()
     records = trainer.fit(state, batches, num_steps=steps, log_fn=on_step)
     wall = time.perf_counter() - t0
-    launches = k1.launches
+    launches = dict(estep=k1.launches, block1_fwd=k23.launches, block1_bwd=k23.bwd_launches)
+    peak = torch.cuda.max_memory_allocated(device)
     if profile_n:
         profile_steps(trainer, state, batches, profile_n)
+    step_peaks = {}
+    if bf16:
+        for remat in (False, True):
+            state.model.cfg = dataclasses.replace(cfg.model, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            float(trainer.train_step(state, next(batches))["loss"])
+            step_peaks[remat] = torch.cuda.max_memory_allocated(device)
+        state.model.cfg = cfg.model
     batches.close()
-    peak = torch.cuda.max_memory_allocated(device)
 
     if len(records) != steps:
         raise AssertionError(f"fit ran {len(records)} of {steps} steps")
     losses = [r["loss"] for r in records]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if launches != steps or any(r["estep_launches"] != 1 for r in records):
-        raise AssertionError(f"E-step kernel launched {launches} times in {steps} steps")
+    per_step = 1 if bf16 else 0
+    for name, key in (("estep", "estep_launches"), ("block1_fwd", "block1_fwd_launches"),
+                      ("block1_bwd", "block1_bwd_launches")):
+        want = 1 if name == "estep" else per_step
+        if launches[name] != want * steps or any(r[key] != want for r in records):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times in {steps} "
+                                 f"steps, expected {want} a step")
     accum = cfg.optim.accum_steps
     want_moved = [(i + 1) % accum == 0 for i in range(steps)]
     if moved != want_moved or [r["updated"] for r in records] != want_moved:
         raise AssertionError(f"params moved at {moved}, expected {want_moved}")
-    # Reference init gives logits ~1e-11, a uniform softmax: CE = ln(C).
+    # Reference init gives logits ~1e-11, a uniform softmax: CE = ln(C). In
+    # bf16 the logits stay below 1e-3 too (f32 out of the last conv), so
+    # the same 1e-3 holds.
     first = math.log(cfg.model.num_classes) + cfg.optim.weight_decay * l2
     if abs(losses[0] - first) > 1e-3:
         raise AssertionError(f"first loss {losses[0]} != ln(C) + wd*l2 = {first}")
     step_ms = statistics.median(r["seconds"] for r in records[2:]) * 1e3
     flops = conv_flops(cfg.model, cfg.train.batch_size)
-    log(f"train: convolutions {flops} FLOP per step (forward and gradients, from shapes): "
-        f"{flops / step_ms / 1e9:.2f} TFLOP/s achieved, f32 bound "
-        f"{flops / SIMT_OPS_PER_S * 1e3:.2f} ms at {SIMT_OPS_PER_S / 1e12:.0f} TFLOP/s")
+    peak_rate = BF16_TENSOR_OPS_PER_S if bf16 else SIMT_OPS_PER_S
+    log(f"{tag}: convolutions {flops} FLOP per step (forward and gradients, from shapes): "
+        f"{flops / step_ms / 1e9:.2f} TFLOP/s achieved, bound "
+        f"{flops / peak_rate * 1e3:.2f} ms at {peak_rate / 1e12:.1f} TFLOP/s")
     result = dict(step_ms=step_ms, images_per_s=cfg.train.batch_size / step_ms * 1e3,
                   peak_bytes=peak, launches=launches, losses=losses, wall_s=wall)
-    log(f"train: {steps} steps, losses {[round(v, 6) for v in losses]}")
-    log(f"train: params moved at steps {[i for i, m in enumerate(moved) if m]}, "
-        f"E-step kernel launches {launches}")
-    log(f"train: median {step_ms:.2f} ms/step over steps 2..{steps - 1}, "
+    log(f"{tag}: {steps} steps, losses {[round(v, 6) for v in losses]}, first "
+        f"{losses[0]:.7f} vs ln(C) + wd*l2 {first:.7f}")
+    log(f"{tag}: params moved at steps {[i for i, m in enumerate(moved) if m]}, launches "
+        f"{launches}")
+    log(f"{tag}: median {step_ms:.2f} ms/step over steps 2..{steps - 1}, "
         f"{result['images_per_s']:.2f} images/s, peak memory {peak} B "
         f"({peak / 2**30:.2f} GiB), fit wall {wall:.2f} s for {steps} steps "
         f"({wall / steps * 1e3:.2f} ms/step with batch fetch and warm-up)")
+    if bf16:
+        log(f"{tag}: one more step's peak memory: {step_peaks[False]} B "
+            f"({step_peaks[False] / 2**30:.2f} GiB) plain, {step_peaks[True]} B "
+            f"({step_peaks[True] / 2**30:.2f} GiB) with model.remat")
+        result["step_peaks"] = step_peaks
     return result
+
+
+def grads_bf16(device) -> dict:
+    """One microstep at full width, bf16, He init, on one batch with the
+    same dropout masks and E-step orders, through the fused block 1 (K2
+    and K3) and through the cuDNN block 1. The two differ by the bias
+    rounding rule (ops/block1.py) and in bf16 rounding throughout; block
+    1's four leaves are held to a relative L2 difference of 0.1, above
+    that noise and below what a fault of K3 gives (a position counted
+    twice or never, a gradient routed to the wrong position: O(1))."""
+    import dataclasses
+
+    import torch
+
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops.estep import make_class_orders
+    from em_adapt_torch.train.trainer import loss_fn, to_device
+
+    base = ExperimentConfig()
+    cfgs = {impl: base.replace(model=dataclasses.replace(
+        base.model, init_scheme="he", compute_dtype="bfloat16", block1_impl=impl))
+        for impl in ("pallas", "xla")}
+    models = {"pallas": build_model(cfgs["pallas"].model, 3, device)}
+    models["xla"] = DeepLabLargeFOV(cfgs["xla"].model).to(device)
+    models["xla"].load_state_dict(models["pallas"].state_dict())
+    data = SyntheticVOC(base.train.batch_size, base.model.num_classes, seed=2)
+    it = batch_iterator(data, base.data, batch_size=base.train.batch_size, seed=0)
+    batch = to_device(next(it), device)
+    it.close()
+    gen = torch.Generator(device).manual_seed(5)
+    c = base.model.num_classes
+    orders = make_class_orders(gen, base.estep.num_iter, c)
+    out_hw = -(-base.model.input_size[0] // 8)
+    shape = (base.train.batch_size, base.model.fc6_channels, out_hw, out_hw)
+    keep = base.model.dropout_keep_prob
+    masks = tuple(torch.rand(shape, generator=gen, device=device) < keep for _ in range(2))
+    grads, metrics, launched = {}, {}, {}
+    for impl, model in models.items():
+        model.train()
+        before = (k23.launches, k23.bwd_launches)
+        total, metrics[impl] = loss_fn(model, batch, cfgs[impl], orders=orders, masks=masks)
+        total.backward()
+        torch.cuda.synchronize()
+        launched[impl] = (k23.launches - before[0], k23.bwd_launches - before[1])
+        grads[impl] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    if launched != {"pallas": (1, 1), "xla": (0, 0)}:
+        raise AssertionError(f"K2/K3 launches {launched}, expected one each through the fused "
+                             f"block and none through the conv path")
+    weak_same = float((metrics["pallas"]["weak"] == metrics["xla"]["weak"]).float().mean())
+    rel = {}
+    for k in grads["xla"]:
+        a, b = grads["pallas"][k], grads["xla"][k]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"grads_bf16: non-finite gradient {k}")
+        rel[k] = float((a - b).norm() / b.norm())
+    log(f"grads bf16: losses {float(metrics['pallas']['loss']):.6f} (K2+K3) vs "
+        f"{float(metrics['xla']['loss']):.6f} (cuDNN block 1); weak labels equal at "
+        f"{100 * weak_same:.4f}% of pixels")
+    log("grads bf16: relative L2 difference per leaf: " + ", ".join(
+        f"{k.removeprefix('layers.')} {v:.3e}" for k, v in rel.items()))
+    block1 = {k: v for k, v in rel.items() if k.split(".")[1] in ("conv1_1", "conv1_2")}
+    bad = {k: v for k, v in block1.items() if not v <= 0.1}
+    if bad:
+        raise AssertionError(f"block 1 gradients of K2+K3 and cuDNN differ by more than 0.1: "
+                             f"{bad}")
+    return dict(rel=rel, weak_same=weak_same)
+
+
+def time_block1_train(device) -> dict:
+    """Block 1's forward and backward (weight gradients, as in training)
+    through K2+K3 and through the cuDNN bf16 chain, at B=6 and at the
+    folded B=30, 321x321, in alternating rounds. The "auto" rule of
+    models/deeplab.py::DeepLabLargeFOV._block1_mode rests on these
+    numbers in training."""
+    import torch
+    import torch.nn.functional as F
+
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops.conv import conv2d_same
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    out = {}
+    for b in (6, 30):
+        x, dy, *weights = bwd_case(np.random.default_rng(b), b, 321, "he", device)
+        ws = [t.clone().requires_grad_(True) for t in weights]
+
+        def fused():
+            return torch.autograd.grad(k23.block1_fused(x, *ws), ws, dy)
+
+        def chain():
+            y = F.relu(conv2d_same(x, ws[0], ws[1], compute_dtype=torch.bfloat16))
+            y = F.relu(conv2d_same(y, ws[2], ws[3], compute_dtype=torch.bfloat16))
+            return torch.autograd.grad(max_pool_same(y, 3, 2), ws, dy)
+
+        times = {"K2+K3": [], "cuDNN": []}
+        for name, fn in (("K2+K3", fused), ("cuDNN", chain), ("cuDNN", chain), ("K2+K3", fused)):
+            times[name].append(cuda_ms_per_launch(fn, launches=10, reps=3, warmup=2))
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        out[b] = ms
+        log(f"block1 train B={b} 321x321: forward + weight gradients K2+K3 {ms['K2+K3']:.4f} ms "
+            f"({', '.join(f'{t:.4f}' for t in times['K2+K3'])}), cuDNN bf16 chain "
+            f"{ms['cuDNN']:.4f} ms ({', '.join(f'{t:.4f}' for t in times['cuDNN'])}); 10 "
+            f"back-to-back calls between CUDA events, median of 3, two rounds each "
+            f"(K2+K3, cuDNN, cuDNN, K2+K3)")
+    faster = all(r["K2+K3"] < r["cuDNN"] for r in out.values())
+    log(f"block1 train: K2+K3 faster at both batches: {faster} (block1_impl='auto' takes "
+        f"them in training)")
+    return out
 
 
 def block1_case(rng: np.random.Generator, b: int, h: int, large_bias: bool, device):
@@ -582,6 +730,155 @@ def check_block1(device, timed: bool) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def k3_flops(b: int, h: int) -> tuple[int, int]:
+    """K3's operations at batch b, h x h: (with the forward recomputed, as
+    the TPU kernel and K3 do it; without it). The recompute belongs to the
+    function: from x, dy and the weights, the routing and the masks need
+    y1 and y2."""
+    per = 2 * h * h * b * 64
+    fwd = per * (27 + 576)
+    return fwd + per * (576 + 576 + 27), per * (576 + 576 + 27)
+
+
+def bwd_case(rng: np.random.Generator, b: int, h: int, kind: str, device):
+    """K3's arguments: x, dy and the weights. ``kind`` "he": a normalized-
+    range input, He-init weights, small biases; "large bias": biases
+    U(20, 60) (the halo must stay masked); "ties": integer-valued x with a
+    flat patch and integer weights, so that windows tie exactly (the case
+    of tests/test_block1_pallas.py:125-147)."""
+    import torch
+
+    if kind == "ties":
+        xi = rng.integers(0, 3, size=(b, 3, h, h)).astype(np.float32)
+        xi[:, :, :6, :6] = 1.0
+        x = torch.from_numpy(xi)
+        w1 = torch.from_numpy(rng.integers(-2, 3, size=(64, 3, 3, 3)).astype(np.float32))
+        w2 = torch.from_numpy(rng.integers(-2, 3, size=(64, 64, 3, 3)).astype(np.float32))
+        b1, b2 = torch.zeros(64), torch.zeros(64)
+        args = [x.to(torch.bfloat16), w1, b1, w2, b2]
+    else:
+        args = block1_case(rng, b, h, kind == "large bias", "cpu")
+    oh = (h + 1) // 2
+    dy = torch.from_numpy(rng.normal(size=(b, 64, oh, oh)).astype(np.float32)).to(torch.bfloat16)
+    x, w1, b1, w2, b2 = (t.to(device) for t in args)
+    return x, dy.to(device), w1, b1, w2, b2
+
+
+def check_block1_bwd(device, timed: bool) -> dict:
+    """K3 against its plain version on the card, per leaf (dw1, db1, dw2,
+    db2): max|diff| / max|plain| and the relative L2 difference. Both
+    recompute y1 bit for bit and route, mask and round at the same points,
+    and K3 owns each y1 and y2 position in one tile (it rounds the whole
+    dz1, as the plain version does). What is left: the order of f32 sums
+    (conv1_2's 576 products, dy1's, the dW sums over the image); and where
+    that order rounds a y2 value to the neighbouring bf16 step (0.0075% of
+    the pooled outputs in K2's check at B=6), a window near a tie routes
+    its whole gradient to another position, or a y2 near 0 flips its ReLU
+    mask. So: on integer-valued inputs ("ties": every y2 an exact f32 sum,
+    rounded alike on both sides) 1e-4 of each leaf's scale in both
+    measures; on real-valued ones 1e-2 (max) and 2e-3 (L2), which a few
+    thousand rerouted windows stay under at B=6 (first measured: 4.2e-3
+    and 7.8e-4) and a fault of the tiling (a position counted twice or
+    never: O(1)) does not. Two runs of K3 give the same bits. With
+    ``timed``, its times at the main path's shape (B=6, 321x321) beside
+    the plain version, the cuDNN bf16 chain's backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops.conv import conv2d_same
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    cases = [("B=6 321x321", 6, 321, "he"), ("B=6 321x321 ties", 6, 321, "ties"),
+             ("B=1 33x33", 1, 33, "he"), ("B=2 41x41 large bias", 2, 41, "large bias"),
+             ("B=2 33x33 ties", 2, 33, "ties"), ("B=1 65x65", 1, 65, "he")]
+    names = ("dw1", "db1", "dw2", "db2")
+    max_err, failed = 0.0, []
+    for name, b, h, kind in cases:
+        x, dy, w1, b1, w2, b2 = bwd_case(np.random.default_rng(10 * h + b), b, h, kind, device)
+        before = k23.bwd_launches
+        got = k23.block1_bwd(x, dy, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        if k23.bwd_launches != before + 1:
+            raise AssertionError(f"K3 {name}: the block1 backward kernel was not launched")
+        want = k23.block1_bwd_plain(x, w1, b1, w2, b2, dy)
+        parts = []
+        for leaf, g, wnt in zip(names, got, want):
+            if g.shape != wnt.shape or g.dtype != torch.float32 or not torch.isfinite(g).all():
+                raise AssertionError(f"K3 {name} {leaf}: {g.dtype} {tuple(g.shape)}, finite "
+                                     f"{bool(torch.isfinite(g).all())}")
+            scale = float(wnt.abs().max())
+            err = float((g - wnt).abs().max())
+            rel = float((g - wnt).norm() / wnt.norm()) if scale > 0 else err
+            tol_max, tol_l2 = (1e-4, 1e-4) if kind == "ties" else (1e-2, 2e-3)
+            if err > tol_max * scale or rel > tol_l2:
+                failed.append(f"{name} {leaf}")
+            max_err = max(max_err, err)
+            parts.append(f"{leaf} max|diff|/max|plain| {err / max(scale, 1e-30):.3e} (max|plain| "
+                         f"{scale:.3e}), rel L2 {rel:.3e}")
+        if kind == "he" and b == 6:
+            apart = int((k23.block1_fused(x, w1, b1, w2, b2)
+                         != k23.block1_plain(x, w1, b1, w2, b2)).sum())
+            parts.append(f"K2 and block1_plain differ at {apart} pooled outputs (their y2 "
+                         f"sums in another order)")
+        log(f"K3 {name}: " + "; ".join(parts))
+        if b == 6:
+            again = k23.block1_bwd(x, dy, w1, b1, w2, b2)
+            same = all(torch.equal(p, q) for p, q in zip(got, again))
+            log(f"K3 {name}: a second run gives the same bits: {same}")
+            if not same:
+                failed.append(f"{name} rerun")
+    if failed:
+        raise AssertionError(f"K3 outside its bound of the plain version, or not reproducible, "
+                             f"in {failed}")
+    if not timed:
+        return dict(max_abs_err=max_err)
+
+    b, h = 6, 321
+    x, dy, w1, b1, w2, b2 = bwd_case(np.random.default_rng(6), b, h, "he", device)
+
+    def run():
+        return k23.block1_bwd(x, dy, w1, b1, w2, b2)
+
+    ws = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+    y = F.relu(conv2d_same(x, ws[0], ws[1], compute_dtype=torch.bfloat16))
+    y = F.relu(conv2d_same(y, ws[2], ws[3], compute_dtype=torch.bfloat16))
+    out = max_pool_same(y, 3, 2)
+
+    def library():
+        """The conv path's cuDNN bf16 chain, backward only (its graph kept)."""
+        return torch.autograd.grad(out, ws, dy, retain_graph=True)
+
+    ms = cuda_ms_per_launch(run, launches=100, reps=5, warmup=3)
+    prof_ms = profiled_kernel_ms(run, "block1_bwd_kernel", launches=20)
+    red_ms = profiled_kernel_ms(run, "block1_bwd_reduce", launches=20)
+    library_ms = cuda_ms_per_launch(library, launches=100, reps=5, warmup=3)
+    plain_ms = cuda_ms(lambda: k23.block1_bwd_plain(x, w1, b1, w2, b2, dy), reps=5, warmup=1)
+    ops, ops_no_recompute = k3_flops(b, h)
+    oh = (h + 1) // 2
+    bytes_moved = (2 * (b * 3 * h * h + b * 64 * oh * oh + 64 * 27 + 64 * 576) + 4 * 2 * 64
+                   + 4 * (64 * 27 + 64 + 64 * 576 + 64))
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+
+    def text(v):
+        return f"{v:.4f} ms" if v is not None else "not measured"
+
+    log(f"K3 time B={b} {h}x{h}: kernel {ms:.4f} ms per launch (device time: 100 back-to-back "
+        f"launches between CUDA events, the partial-sum reduction included, median of 5), "
+        f"profiler device time {text(prof_ms)} for the main kernel and {text(red_ms)} for "
+        f"the reduction (mean of 20); cuDNN bf16 chain backward (library call) "
+        f"{library_ms:.4f} ms per call, back-to-back the same way; plain {plain_ms:.2f} ms "
+        f"(median of 5 single calls); bound {bound_ms:.6f} ms by {bound_by} ({ops} FLOP with "
+        f"the recompute at {BF16_TENSOR_OPS_PER_S / 1e12:.1f} TFLOP/s; "
+        f"{ops_no_recompute / BF16_TENSOR_OPS_PER_S * 1e3:.6f} ms for the {ops_no_recompute} "
+        f"FLOP without it; {bytes_moved} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s give "
+        f"{t_bytes * 1e3:.6f} ms); {ops / ms / 1e9:.1f} TFLOP/s achieved")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def evaluate(device) -> dict:
     """The evaluation path: ``Evaluator`` at full width, bf16, 321x321,
     eval batch 6, He init, over ``EVAL_IMAGES`` synthetic val images, once
@@ -709,7 +1006,7 @@ def main(argv=None) -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    sources = ("estep", "block1_fwd")
+    sources = ("estep", "block1_fwd", "block1_bwd")
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         list(pool.map(build.build, sources))
@@ -721,10 +1018,14 @@ def main(argv=None) -> int:
 
     k1_result = check_estep(device)
     k2_result = check_block1(device, timed=not args.quick)
+    k3_result = check_block1_bwd(device, timed=not args.quick)
     if args.quick:
         return 0
     check_model_small_input(device)
     train_result = train(device, STEPS, args.profile)
+    bf16_result = train(device, STEPS, args.profile, bf16=True)
+    grads_bf16(device)
+    time_block1_train(device)
     eval_result = evaluate(device)
     t6 = k1_result["timing"][6]
     kernels = [{
@@ -732,7 +1033,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "em_adapt_torch/csrc/estep.cu",
         "replaces": "em_adapt_tpu/ops/estep_pallas.py:52",
-        "launches": train_result["launches"],
+        "launches": train_result["launches"]["estep"],
         "max_abs_err": k1_result["max_abs_err"],
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
@@ -751,6 +1052,18 @@ def main(argv=None) -> int:
         "bound_ms": k2_result["bound_ms"],
         "bound_by": k2_result["bound_by"],
         "library_ms": k2_result["library_ms"],
+    }, {
+        "name": "block1_bwd",
+        "route": "cuda",
+        "source": "em_adapt_torch/csrc/block1_bwd.cu",
+        "replaces": "em_adapt_tpu/ops/block1_pallas.py:363",
+        "launches": bf16_result["launches"]["block1_bwd"],
+        "max_abs_err": k3_result["max_abs_err"],
+        "ms": k3_result["ms"],
+        "plain_ms": k3_result["plain_ms"],
+        "bound_ms": k3_result["bound_ms"],
+        "bound_by": k3_result["bound_by"],
+        "library_ms": k3_result["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -51,8 +51,9 @@ class ModelConfig:
     #: "float32", or "bfloat16" (one cast at the model's entry, f32 logits).
     compute_dtype: str = "float32"
     remat: bool = False
-    #: "auto" and "xla" run the conv path; "pallas" runs the fused block1
-    #: forward (the CUDA kernel K2 on the card), at inference only.
+    #: "xla" runs the conv path; "pallas" the fused block1 (the CUDA
+    #: kernels K2 forward and K3 backward on the card); "auto" picks one
+    #: (models/deeplab.py::DeepLabLargeFOV._block1_mode).
     block1_impl: str = "auto"
     #: Caffe-converted ``init.npy`` (reference deeplab.py:293); None = random.
     init_model_path: str | None = None
@@ -123,13 +124,7 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
     if mode not in ("train", "eval"):
         raise ValueError(f"mode={mode!r}: expected 'train' or 'eval'")
     train = mode == "train"
-    bf16_training = "Queue 1 item 1b (bf16 training with the block1 backward K3)"
     unsupported = [
-        (train and cfg.model.compute_dtype == "bfloat16",
-         "training with model.compute_dtype='bfloat16'", bf16_training),
-        (train and cfg.model.block1_impl == "pallas",
-         "training with model.block1_impl='pallas'", bf16_training),
-        (cfg.model.remat, "model.remat=True", bf16_training),
         (train and cfg.estep.impl == "native", "estep.impl='native'",
          "Queue 1 item 4 (the native E-step binding)"),
         (train and cfg.estep.method == "fixed", "estep.method='fixed'",

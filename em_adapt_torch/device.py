@@ -33,8 +33,9 @@ def set_precision(compute_dtype: str = "float32") -> None:
     convolutions in TF32 by default, which keeps about three decimal
     digits. This is the counterpart of the JAX package's
     ``precision="highest"`` for float32 convolutions (ops/conv.py:55).
-    Under "bfloat16" the model's convolutions take bf16 operands, and the
-    f32 convolutions left (the fused block1's plain version) stay f32.
+    Under "bfloat16" the model's convolutions and their gradients take
+    bf16 operands, and the f32 convolutions left (the plain versions of
+    the fused block1's forward and backward) stay f32.
     """
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype={compute_dtype!r}: expected 'float32' or 'bfloat16'")

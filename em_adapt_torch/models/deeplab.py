@@ -14,9 +14,13 @@ and logits as NHWC float32 (a view of the NCHW result).
 ``compute_dtype="bfloat16"`` keeps the whole trunk in bf16 as the JAX
 package does (deeplab.py:349-352): one cast at the entry, the weights
 cast per conv, f32 logits out. ``block1_impl="pallas"`` runs block 1
-through the fused forward (:mod:`em_adapt_torch.ops.block1`, the CUDA
-kernel K2 on the card), at inference only; ``"auto"`` picks K2 wherever
-it applies on the card.
+through the fused block (:mod:`em_adapt_torch.ops.block1`: the CUDA
+kernels K2 forward and K3 backward on the card), in training and at
+inference; ``"auto"`` picks it where it applies on the card and is the
+faster (:meth:`DeepLabLargeFOV._block1_mode`). ``remat=True`` recomputes
+each VGG block's activations in the backward
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does (deeplab.py:
+338-347).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from em_adapt_torch.config import ModelConfig
 from em_adapt_torch.data.augment import normalize_uint8
@@ -201,25 +206,24 @@ class DeepLabLargeFOV(nn.Module):
         self.load_state_dict(from_jax_params(params))
         return self
 
-    def _block1_mode(self, h: int, w: int, train: bool, device: torch.device) -> str:
-        """"pallas" (the fused block1 forward) or "xla" (the conv path).
-        "auto" picks the fused forward wherever its kernel K2 applies, as it
-        is the faster on the H100 (PERF.md): inference on the card in bf16
-        at full width, a square odd input, no gradient to the block's
-        weights; elsewhere, the CPU included, the conv path. "pallas" forces
-        it and raises where it cannot run, by the JAX package's rules
-        (deeplab.py:224-269): a square odd input, inference (K3, the
-        backward, is ROADMAP.md Queue 1 item 1b) and bf16 on the card."""
+    def _block1_mode(self, h: int, w: int, device: torch.device) -> str:
+        """"pallas" (the fused block, K2 and K3 on the card) or "xla" (the
+        conv path). "auto" picks the fused block wherever it applies: on
+        the card, in bf16, at full width, on a square odd input; elsewhere,
+        the CPU included, the conv path. It is the faster there in
+        inference and in training alike (chip_smoke.py, NVIDIA H100 80GB
+        HBM3 at 700 W; PERF.md): K2 alone 0.47 against 0.96 ms for the
+        cuDNN chain at B=6; block 1's forward and weight gradients through
+        K2+K3 2.280 against 2.613 ms at B=6 and 10.908 against 11.342 ms at
+        the folded B=30. "pallas" forces it and raises where it cannot
+        run, by the JAX package's rules (deeplab.py:224-269): a square odd
+        input, and bf16 on the card."""
         impl = self.cfg.block1_impl
         if impl == "xla":
             return "xla"
         if impl == "auto":
-            c1, c2 = self.layers["conv1_1"], self.layers["conv1_2"]
-            needs_grad = torch.is_grad_enabled() and any(
-                p.requires_grad for p in (c1.weight, c1.bias, c2.weight, c2.bias))
-            fits = (not train and not needs_grad and device.type == "cuda"
-                    and self.cfg.compute_dtype == "bfloat16" and c1.weight.shape[0] == 64
-                    and block1_supported(h, w))
+            fits = (device.type == "cuda" and self.cfg.compute_dtype == "bfloat16"
+                    and self.layers["conv1_1"].weight.shape[0] == 64 and block1_supported(h, w))
             return "pallas" if fits else "xla"
         if impl != "pallas":
             raise ValueError(f"model.block1_impl={impl!r}: expected 'auto', 'xla' or 'pallas'")
@@ -228,17 +232,20 @@ class DeepLabLargeFOV(nn.Module):
                 f"model.block1_impl='pallas' does not support input {h}x{w} "
                 "(needs square odd sizes); use 'xla'"
             )
-        if train:
-            raise NotImplementedError(
-                "model.block1_impl='pallas' in training needs the block1 backward K3: "
-                "ROADMAP.md Queue 1 item 1b brings it"
-            )
         if device.type == "cuda" and self.cfg.compute_dtype != "bfloat16":
             raise ValueError(
                 "model.block1_impl='pallas' on the card requires compute_dtype='bfloat16' "
                 "(the kernel computes in bf16); use 'xla' or 'auto'"
             )
         return "pallas"
+
+    def _block(self, h: torch.Tensor, names: tuple[str, ...], cdt) -> torch.Tensor:
+        """One VGG block: its convs with ReLU, then its pool."""
+        for name in names:
+            h = F.relu(self.layers[name](h, cdt), inplace=True)
+            if name in POOLS:
+                h = max_pool_same(h, 3, POOLS[name])
+        return h
 
     def forward(
         self,
@@ -259,15 +266,19 @@ class DeepLabLargeFOV(nn.Module):
         h = normalize_uint8(x).permute(0, 3, 1, 2).contiguous()
         if cdt is not None:
             h = h.to(cdt)
-        specs = vgg_conv_specs(self.cfg)
-        if self._block1_mode(h.shape[2], h.shape[3], train, h.device) == "pallas":
+        names = [spec[0] for spec in vgg_conv_specs(self.cfg)]
+        if self._block1_mode(h.shape[2], h.shape[3], h.device) == "pallas":
             c1, c2 = self.layers["conv1_1"], self.layers["conv1_2"]
             h = block1_fused(h, c1.weight, c1.bias, c2.weight, c2.bias)
-            specs = specs[2:]
-        for name, *_ in specs:
-            h = F.relu(self.layers[name](h, cdt), inplace=True)
-            if name in POOLS:
-                h = max_pool_same(h, 3, POOLS[name])
+            names = names[2:]
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        while names:
+            end = next(i for i, name in enumerate(names) if name in POOLS) + 1
+            block, names = tuple(names[:end]), names[end:]
+            if remat:
+                h = checkpoint(self._block, h, block, cdt, use_reentrant=False)
+            else:
+                h = self._block(h, block, cdt)
         keep = self.cfg.dropout_keep_prob
         for i, name in enumerate(("fc6", "fc7")):
             h = F.relu(self.layers[name](h, cdt), inplace=True)

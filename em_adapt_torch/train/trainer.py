@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from em_adapt_torch.config import ExperimentConfig, check_supported
 from em_adapt_torch.device import resolve_device, set_precision
 from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+from em_adapt_torch.ops import block1 as k23
 from em_adapt_torch.ops import estep_kernel as k1
 from em_adapt_torch.ops.estep import estep_labels, make_class_orders
 from em_adapt_torch.ops.resize import resize_nearest_tf
@@ -141,7 +142,8 @@ class Trainer:
 
         Returns one record per step: step, loss, lr, whether the params
         moved, the step's seconds (host clock, synchronized) and the
-        E-step kernel launches it made. Raises on a non-finite loss.
+        launches it made of the E-step kernel K1 and of the fused block1's
+        forward K2 and backward K3. Raises on a non-finite loss.
         """
         records = []
         it = iter(batches)
@@ -149,7 +151,7 @@ class Trainer:
             batch = next(it, None)
             if batch is None:
                 break
-            launches = k1.launches
+            launches = (k1.launches, k23.launches, k23.bwd_launches)
             t0 = time.perf_counter()
             metrics = self.train_step(state, batch)
             loss = float(metrics["loss"])  # synchronizes the device
@@ -162,7 +164,9 @@ class Trainer:
                 "lr": lr_at(self.cfg.optim, self.steps_per_epoch, state.step - 1),
                 "updated": metrics["updated"],
                 "seconds": seconds,
-                "estep_launches": k1.launches - launches,
+                "estep_launches": k1.launches - launches[0],
+                "block1_fwd_launches": k23.launches - launches[1],
+                "block1_bwd_launches": k23.bwd_launches - launches[2],
             }
             records.append(record)
             if log_fn is not None:

@@ -1,6 +1,7 @@
 """PyTorch port: the fused block1 forward (K2's plain version) against the
 JAX package's ``block1_fused`` run in interpret mode, as
-tests/test_block1_pallas.py runs it, and the wrapper's refusals."""
+tests/test_block1_pallas.py runs it; the wrapper's gradient contract and
+refusals; the "auto" rule."""
 
 import numpy as np
 import pytest
@@ -92,26 +93,36 @@ def test_fused_rejects_even_and_non_square_inputs():
 
 
 def test_fused_rejects_weights_that_need_a_gradient():
-    """No backward yet (K3): a silent zero gradient would be worse than an
-    error; under no_grad the same weights pass."""
+    """Weights that need a gradient now run the autograd Function (K3's
+    plain version on the CPU): the output carries a graph, its values are
+    those of the no-gradient forward, and every weight gets a gradient; an
+    x that needs one still raises (block 1 gives its input none)."""
     x, w1, b1, w2, b2 = _inputs(1, 13)
     t = torch.from_numpy
     ws = [torch.nn.Parameter(a) for a in (t(w1).permute(3, 2, 0, 1).contiguous(), t(b1),
                                           t(w2).permute(3, 2, 0, 1).contiguous(), t(b2))]
     xt = t(x).permute(0, 3, 1, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        k2.block1_fused(xt, *ws)
+    out = k2.block1_fused(xt, *ws)
+    assert out.requires_grad and out.shape == (2, 16, 7, 7)
     with torch.no_grad():
-        assert k2.block1_fused(xt, *ws).shape == (2, 16, 7, 7)
+        assert torch.equal(out, k2.block1_fused(xt, *ws))
+    out.square().sum().backward()
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in ws)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        k2.block1_fused(xt.clone().requires_grad_(True), *ws)
 
 
 def test_pallas_block1_refuses_training_and_even_inputs():
+    """block1_impl="pallas" trains now (block 1's weights get gradients
+    through the Function); even inputs still raise."""
     cfg = ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8, width_multiplier=0.125,
                       block1_impl="pallas", compute_dtype="bfloat16")
     model = DeepLabLargeFOV(cfg).load_params(init_params(torch.Generator(), cfg))
     x = torch.zeros(1, 33, 33, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1b"):
-        model(x, train=True, generator=torch.Generator())
+    logits = model(x, train=True, generator=torch.Generator())
+    assert logits.shape == (1, 5, 5, 4)
+    logits.square().sum().backward()
+    assert model.layers["conv1_1"].weight.grad is not None
     with torch.no_grad(), pytest.raises(ValueError, match="square odd"):
         model(torch.zeros(1, 32, 32, 3))
     with torch.no_grad():
@@ -119,23 +130,23 @@ def test_pallas_block1_refuses_training_and_even_inputs():
 
 
 def test_auto_picks_the_kernel_where_it_applies():
-    """block1_impl="auto": the fused forward at inference on the card in
-    bf16 at full width, on a square odd input, with no gradient to the
-    block's weights; the conv path anywhere else. The rule reads only the
-    device's type, so it is checked here without a card."""
+    """block1_impl="auto": the fused block (K2, and K3 where a gradient
+    flows) on the card in bf16 at full width on a square odd input, in
+    inference and in training alike, where the H100 measured it faster;
+    the conv path anywhere else. The rule reads only the device's type, so
+    it is checked here without a card."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
-    def mode(h=321, train=False, device=cuda, **kw):
+    def mode(h=321, device=cuda, **kw):
         cfg = ModelConfig(**{"fc6_channels": 8, "compute_dtype": "bfloat16",
                              "block1_impl": "auto", **kw})
-        return DeepLabLargeFOV(cfg)._block1_mode(h, h, train, device)
+        return DeepLabLargeFOV(cfg)._block1_mode(h, h, device)
 
-    with torch.no_grad():
-        assert mode() == "pallas"
-        assert mode(device=cpu) == "xla"
-        assert mode(h=320) == "xla"
-        assert mode(train=True) == "xla"
-        assert mode(compute_dtype="float32") == "xla"
-        assert mode(width_multiplier=0.5) == "xla"
-        assert mode(block1_impl="xla") == "xla"
-    assert mode() == "xla"  # grad mode on, and the weights need a gradient
+    for grad in (False, True):  # with grad mode on, the weights need a gradient
+        with torch.set_grad_enabled(grad):
+            assert mode() == "pallas"
+            assert mode(device=cpu) == "xla"
+            assert mode(h=320) == "xla"
+            assert mode(compute_dtype="float32") == "xla"
+            assert mode(width_multiplier=0.5) == "xla"
+            assert mode(block1_impl="xla") == "xla"

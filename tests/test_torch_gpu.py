@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the E-step kernel K1 against its plain
-version and the reference goldens, and the fused block1 forward K2
-against its plain version. Every test carries the ``gpu`` marker and
-skips without a card (a CUDA kernel has no CPU mode).
+version and the reference goldens, the fused block1 forward K2 and
+backward K3 against their plain versions, and a bf16 training step
+through them. Every test carries the ``gpu`` marker and skips without a
+card (a CUDA kernel has no CPU mode).
 
 The file needs neither JAX nor the shared conftest, so on a machine with
 a card and no JAX it runs as:
@@ -141,21 +142,22 @@ def test_block1_kernel_matches_plain(cuda_device, b, h, large_bias):
 @pytest.mark.gpu
 def test_auto_block1_runs_the_kernel_at_inference(cuda_device):
     """block1_impl="auto" at full width in bf16 launches K2 once per
-    forward under no_grad, and not where a weight needs a gradient."""
+    forward under no_grad, and K2 then K3 once each where a gradient
+    flows to block 1's weights."""
     from em_adapt_torch.config import ModelConfig
     from em_adapt_torch.models.deeplab import DeepLabLargeFOV, init_params
-    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.ops import block1 as k23
 
     cfg = ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8,
                       compute_dtype="bfloat16", init_scheme="he")
     model = DeepLabLargeFOV(cfg).load_params(init_params(torch.Generator(), cfg)).to(cuda_device)
     x = torch.zeros(1, 33, 33, 3, device=cuda_device)
-    before = k2.launches
+    before = (k23.launches, k23.bwd_launches)
     with torch.no_grad():
         assert model(x).shape == (1, 5, 5, 4)
-    assert k2.launches == before + 1
-    model(x)
-    assert k2.launches == before + 1
+    assert (k23.launches, k23.bwd_launches) == (before[0] + 1, before[1])
+    model(x).square().sum().backward()
+    assert (k23.launches, k23.bwd_launches) == (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.gpu
@@ -167,3 +169,96 @@ def test_pallas_block1_needs_bf16_on_the_card(cuda_device):
     model = DeepLabLargeFOV(cfg).load_params(init_params(torch.Generator(), cfg)).to(cuda_device)
     with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
         model(torch.zeros(1, 33, 33, 3, device=cuda_device))
+
+
+def _bwd_case(g, b, h, kind, device):
+    """K3's arguments (x, dy, w1, b1, w2, b2). "ties": integer-valued x with
+    a flat patch and integer weights, so every y2 is an exact f32 sum and
+    windows tie exactly; otherwise ``_block1_case``'s input, with biases
+    U(20, 60) for "large bias"."""
+    if kind == "ties":
+        xi = g.integers(0, 3, size=(b, 3, h, h)).astype(np.float32)
+        xi[:, :, :6, :6] = 1.0
+        args = [torch.from_numpy(xi).to(torch.bfloat16),
+                torch.from_numpy(g.integers(-2, 3, size=(64, 3, 3, 3)).astype(np.float32)),
+                torch.zeros(64),
+                torch.from_numpy(g.integers(-2, 3, size=(64, 64, 3, 3)).astype(np.float32)),
+                torch.zeros(64)]
+    else:
+        args = _block1_case(g, b, h, kind == "large bias", "cpu")
+    oh = (h + 1) // 2
+    dy = torch.from_numpy(g.normal(size=(b, 64, oh, oh)).astype(np.float32)).to(torch.bfloat16)
+    x, w1, b1, w2, b2 = (t.to(device) for t in args)
+    return x, dy.to(device), w1, b1, w2, b2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kind", [(6, 321, "he"), (6, 321, "ties"), (1, 33, "he"),
+                                      (2, 41, "large bias"), (2, 33, "ties"), (1, 65, "he")])
+def test_block1_bwd_kernel_matches_plain(cuda_device, b, h, kind):
+    """K3 against block1_bwd_plain on the same card, each leaf: on
+    integer-valued inputs (exact y2 on both sides) within 1e-4 of its
+    scale; otherwise max|diff| within 1e-2 of it and a relative L2 within
+    2e-3, where the two sum conv1_2 in another order and a y2 rounded to
+    the neighbouring bf16 step reroutes a near-tied window (the bounds of
+    chip_smoke.py::check_block1_bwd). Ragged edge tiles at every size."""
+    from em_adapt_torch.device import set_precision
+    from em_adapt_torch.ops import block1 as k23
+
+    set_precision("bfloat16")  # the plain version's f32 convolutions stay f32
+    args = _bwd_case(np.random.default_rng(10 * h + b), b, h, kind, cuda_device)
+    before = k23.bwd_launches
+    got = k23.block1_bwd(*args)
+    torch.cuda.synchronize()
+    assert k23.bwd_launches == before + 1
+    x, dy, w1, b1, w2, b2 = args
+    want = k23.block1_bwd_plain(x, w1, b1, w2, b2, dy)
+    tol_max, tol_l2 = (1e-4, 1e-4) if kind == "ties" else (1e-2, 2e-3)
+    for name, g, w in zip(("dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert float((g - w).abs().max()) <= tol_max * float(w.abs().max()), name
+        assert float((g - w).norm()) <= tol_l2 * float(w.norm()), name
+
+
+@pytest.mark.gpu
+def test_block1_bwd_kernel_is_reproducible(cuda_device):
+    """No float atomics: two runs give the same bits."""
+    from em_adapt_torch.ops import block1 as k23
+
+    args = _bwd_case(np.random.default_rng(3), 6, 321, "he", cuda_device)
+    first, second = k23.block1_bwd(*args), k23.block1_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_launches_k2_and_k3_once(cuda_device):
+    """One bf16 training step with block1_impl="pallas" at full VGG width
+    (33x33, a narrow head): K1, K2 and K3 each launch once, the loss and
+    every gradient are finite, and block 1's weights get a gradient."""
+    import dataclasses
+
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.trainer import Trainer
+
+    cfg = ExperimentConfig()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, num_classes=4, input_size=(33, 33), fc6_channels=8,
+                                  compute_dtype="bfloat16", block1_impl="pallas"),
+        data=dataclasses.replace(cfg.data, input_size=(33, 33)),
+        train=dataclasses.replace(cfg.train, batch_size=2))
+    trainer = Trainer(cfg, device=cuda_device)
+    state = trainer.init_state()
+    g = np.random.default_rng(0)
+    label = np.zeros((2, 33, 33, 1), np.float32)
+    label[:, 10:, :16] = 1
+    batch = {"image": (g.normal(size=(2, 33, 33, 3)) * 40).astype(np.float32), "label": label}
+    before = (k1.launches, k23.launches, k23.bwd_launches)
+    metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert (k1.launches, k23.launches, k23.bwd_launches) == tuple(n + 1 for n in before)
+    assert np.isfinite(float(metrics["loss"]))
+    grads = [p.grad for p in state.model.parameters()]
+    assert all(p is not None and bool(torch.isfinite(p).all()) for p in grads)
+    assert float(state.model.layers["conv1_2"].weight.grad.abs().sum()) > 0

@@ -231,7 +231,8 @@ def test_trainer_fit_on_cpu():
     assert all(np.isfinite(r["loss"]) for r in records)
     assert [r["updated"] for r in records] == [False, True, False, True]
     assert [r["lr"] for r in records] == [0.05, 0.05, 0.005, 0.005]
-    assert all(r["estep_launches"] == 0 for r in records)  # CPU: plain version
+    for key in ("estep_launches", "block1_fwd_launches", "block1_bwd_launches"):
+        assert all(r[key] == 0 for r in records)  # CPU: the plain versions
 
 
 def test_config_defaults_match_jax_and_unported_values_raise():
@@ -244,16 +245,15 @@ def test_config_defaults_match_jax_and_unported_values_raise():
                                                          "estep.suppress_others=false"])
     assert cfg.data.input_size == (65, 65) and cfg.estep.suppress_others is False
     pcfg.check_supported(pcfg.ExperimentConfig())
-    for override in ("model.compute_dtype=bfloat16", "model.block1_impl=pallas",
-                     "estep.impl=native", "estep.method=fixed", "model.remat=true"):
+    for override in ("estep.impl=native", "estep.method=fixed"):
         bad = pcfg.apply_overrides(pcfg.ExperimentConfig(), [override])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pcfg.check_supported(bad)
-    # Training with bf16 or the fused block1 waits for K3; evaluation runs them.
-    for override in ("model.compute_dtype=bfloat16", "model.block1_impl=pallas"):
+    # bf16, the fused block1 (K2 and K3) and remat run in training and evaluation.
+    for override in ("model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+                     "model.remat=true"):
         cfg = pcfg.apply_overrides(pcfg.ExperimentConfig(), [override])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1b"):
-            pcfg.check_supported(cfg, "train")
+        pcfg.check_supported(cfg, "train")
         pcfg.check_supported(cfg, "eval")
 
 
