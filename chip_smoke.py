@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--quick] [--profile N]
 
 Run from the root of a checkout. It builds the CUDA kernels from the
-checkout's sources (one nvcc per source, in parallel), holds each against
-its plain PyTorch version on the card, and drives the port's two paths:
-full-width DeepLab-LargeFOV training at 321x321, batch 6, accumulation 5,
-f32, through ``Trainer.fit`` (the E-step kernel K1), and the bf16
-fixed-resolution evaluation at 321x321, eval batch 6, through
-``Evaluator.evaluate_fixed`` (the fused block1 kernel K2), then checks
-what comes out. Every phase raises on failure and the script then exits
+checkout's sources and K3's per-part variants (one nvcc per library, in
+parallel), holds each against its plain PyTorch version on the card,
+times K3 part by part (``em_adapt_torch/tools/bench_block1_bwd_parts.py``),
+and drives the port's paths: full-width DeepLab-LargeFOV training at
+321x321, batch 6, accumulation 5, through ``Trainer.fit`` in f32 (the
+E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
+backward K3), and the bf16 fixed-resolution evaluation at 321x321, eval
+batch 6, through ``Evaluator.evaluate_fixed`` (K2), then checks what
+comes out. Every phase raises on failure and the script then exits
 non-zero; without a CUDA card, or without the ``em_adapt_torch`` package
 beside it, it exits non-zero before printing any result. ``--quick``
 stops after the kernel checks; ``--profile N`` adds a torch.profiler
@@ -36,15 +38,17 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-#: operations/s outside the tensor cores (the rate used for K1's integer
-#: compares and float adds).
-HBM_BYTES_PER_S = 3.35e12
-SIMT_OPS_PER_S = 67e12
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for K2's bound.
-BF16_TENSOR_OPS_PER_S = 989.4e12
+sys.path.insert(0, ROOT)
+try:  # the card's peaks and the timers, shared with the port's tools
+    from em_adapt_torch.utils.timing import (
+        BF16_TENSOR_OPS_PER_S, HBM_BYTES_PER_S, SIMT_OPS_PER_S, cuda_ms, cuda_ms_per_launch,
+    )
+except ImportError as e:  # main() refuses to run without the port beside this file
+    PORT_MISSING: ImportError | None = e
+else:
+    PORT_MISSING = None
 
 #: Training steps of the main path: two applied updates at accumulation 5.
 STEPS = 10
@@ -62,45 +66,6 @@ def card_info() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int) -> float:
-    """Median milliseconds of one ``fn()`` call over ``reps`` calls, each
-    between its own pair of CUDA events, after ``warmup`` calls. Host work
-    inside ``fn`` counts whenever the device waits for it."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def cuda_ms_per_launch(fn, launches: int, reps: int, warmup: int) -> float:
-    """Milliseconds per call of ``launches`` back-to-back ``fn()`` calls
-    between one pair of CUDA events (median of ``reps`` such runs): the
-    host queues ahead of the device, so its work per call is hidden."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
 
 
 def profiled_kernel_ms(fn, kernel: str, launches: int) -> float | None:
@@ -272,7 +237,8 @@ def check_estep(device) -> dict:
         ops = 31 * hw * present_visits
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / SIMT_OPS_PER_S) * 1e3
         bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / SIMT_OPS_PER_S else "operations"
-        timing[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timing[b] = dict(ms=ms, prof_ms=prof_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, present=tags[:, visits].sum(1).tolist())
         prof_text = f"{prof_ms:.4f} ms" if prof_ms is not None else "not measured"
         log(f"K1 time B={b}: kernel {ms:.4f} ms per launch (100 back-to-back launches "
             f"between CUDA events, median of 20), {call_ms:.4f} ms per single call "
@@ -403,13 +369,25 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     if profile_n:
         profile_steps(trainer, state, batches, profile_n)
-    step_peaks = {}
+    step_peaks, kept = {}, []
     if bf16:
+        from em_adapt_torch.ops import estep as estep_ops
+
+        kernel = estep_ops.estep_kernel
+
+        def keep(*a, **kw):  # the E-step call's own arguments, kept for timing K1 on them
+            kept.append((a, kw))
+            return kernel(*a, **kw)
+
         for remat in (False, True):
             state.model.cfg = dataclasses.replace(cfg.model, remat=remat)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
-            float(trainer.train_step(state, next(batches))["loss"])
+            estep_ops.estep_kernel = kernel if remat else keep
+            try:
+                float(trainer.train_step(state, next(batches))["loss"])
+            finally:
+                estep_ops.estep_kernel = kernel
             step_peaks[remat] = torch.cuda.max_memory_allocated(device)
         state.model.cfg = cfg.model
     batches.close()
@@ -457,7 +435,32 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
             f"({step_peaks[False] / 2**30:.2f} GiB) plain, {step_peaks[True]} B "
             f"({step_peaks[True] / 2**30:.2f} GiB) with model.remat")
         result["step_peaks"] = step_peaks
+        if len(kept) != 1:
+            raise AssertionError(f"{tag}: the plain extra step called K1 {len(kept)} times")
+        result["k1_in_step"] = time_k1_on(*kept[0])
     return result
+
+
+def time_k1_on(args, kw) -> dict:
+    """K1's time on the arguments of one training step's E-step call (the
+    scores and tags of that step), as ``check_estep`` times it on
+    ``realistic_batch``, with the present class visits per image that set
+    its length (31 block-wide counts each; absent classes are skipped)."""
+    import torch
+
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    scores, labels, visit = args[:3]
+    c = scores.shape[1]
+    tags = (labels[:, :, None] == torch.arange(c, device=labels.device)).any(1)
+    present = tags[:, visit.long()].sum(1).tolist()
+
+    def run():
+        return k1.estep_kernel(*args, **kw)
+
+    ms = cuda_ms_per_launch(run, launches=100, reps=20, warmup=5)
+    prof_ms = profiled_kernel_ms(run, "estep_kernel", launches=50)
+    return dict(ms=ms, prof_ms=prof_ms, present=present, shape=tuple(scores.shape))
 
 
 def grads_bf16(device) -> dict:
@@ -740,6 +743,37 @@ def k3_flops(b: int, h: int) -> tuple[int, int]:
     return fwd + per * (576 + 576 + 27), per * (576 + 576 + 27)
 
 
+def k3_bound(b: int, h: int) -> dict:
+    """K3's bound at batch b, h x h: the larger of its operations (with the
+    recompute) at the dense bf16 peak and the bytes of x, dy, the weights
+    and the f32 gradients at the HBM rate."""
+    ops, ops_no_recompute = k3_flops(b, h)
+    oh = (h + 1) // 2
+    bytes_moved = (2 * (b * 3 * h * h + b * 64 * oh * oh + 64 * 27 + 64 * 576) + 4 * 2 * 64
+                   + 4 * (64 * 27 + 64 + 64 * 576 + 64))
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes", ops=ops,
+                ops_no_recompute=ops_no_recompute, bytes=bytes_moved, bytes_ms=t_bytes * 1e3)
+
+
+def chain_backward(x, dy, w1, b1, w2, b2):
+    """The library call for K3's function: ``torch.autograd.grad`` through
+    the conv path's cuDNN bf16 chain (conv, bias, ReLU, conv, bias, ReLU,
+    pool), backward only (its graph kept); returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    from em_adapt_torch.ops.conv import conv2d_same
+    from em_adapt_torch.ops.pooling import max_pool_same
+
+    ws = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+    y = F.relu(conv2d_same(x, ws[0], ws[1], compute_dtype=torch.bfloat16))
+    y = F.relu(conv2d_same(y, ws[2], ws[3], compute_dtype=torch.bfloat16))
+    out = max_pool_same(y, 3, 2)
+    return lambda: torch.autograd.grad(out, ws, dy, retain_graph=True)
+
+
 def bwd_case(rng: np.random.Generator, b: int, h: int, kind: str, device):
     """K3's arguments: x, dy and the weights. ``kind`` "he": a normalized-
     range input, He-init weights, small biases; "large bias": biases
@@ -783,11 +817,8 @@ def check_block1_bwd(device, timed: bool) -> dict:
     ``timed``, its times at the main path's shape (B=6, 321x321) beside
     the plain version, the cuDNN bf16 chain's backward and the bound."""
     import torch
-    import torch.nn.functional as F
 
     from em_adapt_torch.ops import block1 as k23
-    from em_adapt_torch.ops.conv import conv2d_same
-    from em_adapt_torch.ops.pooling import max_pool_same
 
     cases = [("B=6 321x321", 6, 321, "he"), ("B=6 321x321 ties", 6, 321, "ties"),
              ("B=1 33x33", 1, 33, "he"), ("B=2 41x41 large bias", 2, 41, "large bias"),
@@ -840,27 +871,14 @@ def check_block1_bwd(device, timed: bool) -> dict:
     def run():
         return k23.block1_bwd(x, dy, w1, b1, w2, b2)
 
-    ws = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
-    y = F.relu(conv2d_same(x, ws[0], ws[1], compute_dtype=torch.bfloat16))
-    y = F.relu(conv2d_same(y, ws[2], ws[3], compute_dtype=torch.bfloat16))
-    out = max_pool_same(y, 3, 2)
-
-    def library():
-        """The conv path's cuDNN bf16 chain, backward only (its graph kept)."""
-        return torch.autograd.grad(out, ws, dy, retain_graph=True)
-
     ms = cuda_ms_per_launch(run, launches=100, reps=5, warmup=3)
     prof_ms = profiled_kernel_ms(run, "block1_bwd_kernel", launches=20)
     red_ms = profiled_kernel_ms(run, "block1_bwd_reduce", launches=20)
-    library_ms = cuda_ms_per_launch(library, launches=100, reps=5, warmup=3)
+    library_ms = cuda_ms_per_launch(chain_backward(x, dy, w1, b1, w2, b2), launches=100, reps=5,
+                                    warmup=3)
     plain_ms = cuda_ms(lambda: k23.block1_bwd_plain(x, w1, b1, w2, b2, dy), reps=5, warmup=1)
-    ops, ops_no_recompute = k3_flops(b, h)
-    oh = (h + 1) // 2
-    bytes_moved = (2 * (b * 3 * h * h + b * 64 * oh * oh + 64 * 27 + 64 * 576) + 4 * 2 * 64
-                   + 4 * (64 * 27 + 64 + 64 * 576 + 64))
-    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound = k3_bound(b, h)
+    ops = bound["ops"]
 
     def text(v):
         return f"{v:.4f} ms" if v is not None else "not measured"
@@ -870,13 +888,121 @@ def check_block1_bwd(device, timed: bool) -> dict:
         f"profiler device time {text(prof_ms)} for the main kernel and {text(red_ms)} for "
         f"the reduction (mean of 20); cuDNN bf16 chain backward (library call) "
         f"{library_ms:.4f} ms per call, back-to-back the same way; plain {plain_ms:.2f} ms "
-        f"(median of 5 single calls); bound {bound_ms:.6f} ms by {bound_by} ({ops} FLOP with "
-        f"the recompute at {BF16_TENSOR_OPS_PER_S / 1e12:.1f} TFLOP/s; "
-        f"{ops_no_recompute / BF16_TENSOR_OPS_PER_S * 1e3:.6f} ms for the {ops_no_recompute} "
-        f"FLOP without it; {bytes_moved} B at {HBM_BYTES_PER_S / 1e12:.2f} TB/s give "
-        f"{t_bytes * 1e3:.6f} ms); {ops / ms / 1e9:.1f} TFLOP/s achieved")
+        f"(median of 5 single calls); bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+        f"({ops} FLOP with the recompute at {BF16_TENSOR_OPS_PER_S / 1e12:.1f} TFLOP/s; "
+        f"{bound['ops_no_recompute'] / BF16_TENSOR_OPS_PER_S * 1e3:.6f} ms for the "
+        f"{bound['ops_no_recompute']} FLOP without it; {bound['bytes']} B at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s give {bound['bytes_ms']:.6f} ms); "
+        f"{ops / ms / 1e9:.1f} TFLOP/s achieved")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def check_block1_bwd_parts(device, timed: bool) -> dict:
+    """K3's per-part builds (``em_adapt_torch/tools/bench_block1_bwd_parts.py``,
+    the port of the probe ``tools/bench_block1_bwd_parts.py:169``): every
+    variant built with no spills, its ptxas report and the HMMA
+    instructions of its SASS printed, ``skip_update`` with as many as
+    ``full`` (no product dropped with the updates); ``full`` on K3's own
+    library and bit-equal to K3; every variant but ``skip_update``
+    against its plain version per leaf: on integer-valued inputs at B=6,
+    321^2 within 1e-4 of the leaf's scale in max and L2 (a leaf the variant
+    zeroes must be exactly 0), on one real-valued case (B=1, 33^2) within
+    K3's bounds (max 1e-2, L2 2e-3; ``check_block1_bwd`` says why); its
+    ``max_abs_err`` is the worst variant's at B=6, 321^2. With ``timed``,
+    the probe's own path: every variant's time at B=6, 321^2 on the
+    probe's inputs as the tool times it, its variant launches counted from
+    0 and held to the count the timing makes; beside ``full`` its plain
+    version, the cuDNN chain's backward and K3's bound."""
+    import torch
+
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.tools import bench_block1_bwd_parts as parts
+    from em_adapt_torch.utils import build
+
+    paths = parts.build_variants()
+    if paths["full"] != build.build("block1_bwd"):
+        raise AssertionError(f"K3 parts: full's library {paths['full'].name} is not K3's own")
+    reports = parts.variant_reports(paths)
+    for name, r in reports.items():
+        log(f"K3 parts {name} ({' '.join(parts.VARIANTS[name].defines) or 'no macro'}): ptxas "
+            f"{r['registers']} registers, {r['spill_stores']} B spill stores, "
+            f"{r['spill_loads']} B spill loads, {r['static_smem']} B static smem; "
+            f"{r['hmma']} HMMA in its SASS; {r['library']}")
+    spilled = [n for n, r in reports.items() if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"K3 parts: {spilled} spill registers")
+    if reports["skip_update"]["hmma"] != reports["full"]["hmma"]:
+        raise AssertionError(f"K3 parts: skip_update has {reports['skip_update']['hmma']} HMMA "
+                             f"against full's {reports['full']['hmma']}: products were dropped")
+
+    args = bwd_case(np.random.default_rng(66), 6, 321, "he", device)
+    got = parts.block1_bwd_parts(*args, "full")
+    want = k23.block1_bwd(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"K3 parts: full differs from K3 by "
+                             f"{max(float((g - w).abs().max()) for g, w in zip(got, want))}")
+    log(f"K3 parts full: K3's own library ({paths['full'].name}), bit-equal to K3 at B=6 "
+        f"321x321")
+
+    failed, max_err = [], 0.0  # max_err: the worst variant's max|diff| at B=6, 321^2
+    for case, b, h, kind, tol_max, tol_l2 in (("B=6 321x321 ties", 6, 321, "ties", 1e-4, 1e-4),
+                                              ("B=1 33x33", 1, 33, "he", 1e-2, 2e-3)):
+        x, dy, w1, b1, w2, b2 = bwd_case(np.random.default_rng(10 * h + b), b, h, kind, device)
+        for name in parts.VARIANTS:
+            if name == "skip_update":
+                continue
+            before = parts.launches
+            got = parts.block1_bwd_parts(x, dy, w1, b1, w2, b2, name)
+            torch.cuda.synchronize()
+            if parts.launches != before + 1:
+                raise AssertionError(f"K3 parts {name}: the variant was not launched")
+            want = parts.block1_bwd_parts_plain(x, w1, b1, w2, b2, dy, name)
+            texts = []
+            for leaf, g, w in zip(("dw1", "db1", "dw2", "db2"), got, want):
+                if g.shape != w.shape or not torch.isfinite(g).all():
+                    raise AssertionError(f"K3 parts {name} {case} {leaf}: {tuple(g.shape)}, "
+                                         f"finite {bool(torch.isfinite(g).all())}")
+                scale = float(w.abs().max())
+                err = float((g - w).abs().max())
+                if b == 6:
+                    max_err = max(max_err, err)
+                rel = float((g - w).norm() / w.norm()) if scale > 0 else err
+                if err > tol_max * scale or rel > tol_l2:
+                    failed.append(f"{name} {case} {leaf}")
+                texts.append(f"{leaf} max|diff|/max|plain| {err / max(scale, 1e-30):.3e} "
+                             f"(max|plain| {scale:.3e}), rel L2 {rel:.3e}")
+            log(f"K3 parts {name} {case}: " + "; ".join(texts))
+    if failed:
+        raise AssertionError(f"K3 parts outside their bound of the plain versions: {failed}")
+    if not timed:
+        return dict(max_abs_err=max_err)
+
+    b, h, iters, reps, warmup = 6, 321, 100, 5, 3
+    parts.launches = 0  # the probe's path: the timing run below
+    ms = parts.time_variants(device, b, iters=iters, reps=reps, warmup=warmup)
+    launches = parts.launches
+    if launches != len(parts.VARIANTS) * (warmup + reps * iters):
+        raise AssertionError(f"K3 parts: {launches} variant launches in the timing run, expected "
+                             f"{len(parts.VARIANTS)} x ({warmup} + {reps} x {iters})")
+    for record in parts.records(reports, ms, b, h):
+        log("K3 parts " + json.dumps(record))
+    log(f"K3 parts: {parts.NOTE} Times: {iters} back-to-back launches between CUDA events, the "
+        f"partial-sum reduction included, median of {reps} rounds that take the variants in "
+        f"turn; {launches} variant launches in all.")
+    x, dy, w1, b1, w2, b2 = parts.probe_inputs(b, h, device)
+    plain_ms = cuda_ms(lambda: parts.block1_bwd_parts_plain(x, w1, b1, w2, b2, dy, "full"),
+                       reps=5, warmup=1)
+    library_ms = cuda_ms_per_launch(chain_backward(x, dy, w1, b1, w2, b2), launches=100, reps=5,
+                                    warmup=3)
+    bound = k3_bound(b, h)
+    log(f"K3 parts full B={b} {h}x{h} on the probe's inputs: {ms['full']:.4f} ms per launch; "
+        f"plain {plain_ms:.2f} ms (median of 5 single calls); cuDNN bf16 chain backward "
+        f"(library call) {library_ms:.4f} ms; bound {bound['bound_ms']:.6f} ms by "
+        f"{bound['bound_by']}")
+    return dict(max_abs_err=max_err, ms=ms["full"], plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], launches=launches)
 
 
 def evaluate(device) -> dict:
@@ -992,13 +1118,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    try:
-        from em_adapt_torch.device import set_precision
-        from em_adapt_torch.utils import build
-    except ImportError as e:
-        print(f"chip_smoke: the em_adapt_torch package is missing: {e}", file=sys.stderr)
+    if PORT_MISSING is not None:
+        print(f"chip_smoke: the em_adapt_torch package is missing: {PORT_MISSING}",
+              file=sys.stderr)
         return 2
+    from em_adapt_torch.device import set_precision
+    from em_adapt_torch.tools import bench_block1_bwd_parts as parts
+    from em_adapt_torch.utils import build
 
     device = torch.device("cuda", 0)
     log(card_info())
@@ -1007,27 +1133,41 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     sources = ("estep", "block1_fwd", "block1_bwd")
+    variants = [v.defines for v in parts.VARIANTS.values() if v.defines]
+    jobs = [(name, ()) for name in sources] + [("block1_bwd", d) for d in variants]
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
-        list(pool.map(build.build, sources))
-    log(f"build: csrc/{{{','.join(sources)}}}.cu in {time.perf_counter() - t0:.2f} s")
+    with cf.ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc per source and variant, together
+        list(pool.map(lambda job: build.build(*job), jobs))
+    log(f"build: csrc/{{{','.join(sources)}}}.cu and {len(variants)} variants of block1_bwd.cu "
+        f"in {time.perf_counter() - t0:.2f} s")
     for name in sources:
-        for line in build.build_logs.get(name, "").splitlines():
+        for line in build.build_logs.get((name, ()), "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     k1_result = check_estep(device)
     k2_result = check_block1(device, timed=not args.quick)
     k3_result = check_block1_bwd(device, timed=not args.quick)
+    parts_result = check_block1_bwd_parts(device, timed=not args.quick)
     if args.quick:
         return 0
     check_model_small_input(device)
     train_result = train(device, STEPS, args.profile)
+    parts.launches = 0
     bf16_result = train(device, STEPS, args.profile, bf16=True)
+    if parts.launches:
+        raise AssertionError(f"the bf16 training run launched {parts.launches} K3 variants")
+    in_step, t6 = bf16_result["k1_in_step"], k1_result["timing"][6]
+    log(f"K1 on one bf16 training step's own E-step inputs {in_step['shape']}: "
+        f"{in_step['ms']:.4f} ms per launch (100 back-to-back launches between CUDA events, "
+        f"median of 20), profiler device time "
+        f"{in_step['prof_ms'] if in_step['prof_ms'] is not None else 'not measured'} ms; present "
+        f"class visits per image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, "
+        f"profiler {t6['prof_ms'] if t6['prof_ms'] is not None else 'not measured'} ms, present "
+        f"visits per image {t6['present']}")
     grads_bf16(device)
     time_block1_train(device)
     eval_result = evaluate(device)
-    t6 = k1_result["timing"][6]
     kernels = [{
         "name": "estep",
         "route": "cuda",
@@ -1064,7 +1204,20 @@ def main(argv=None) -> int:
         "bound_ms": k3_result["bound_ms"],
         "bound_by": k3_result["bound_by"],
         "library_ms": k3_result["library_ms"],
+    }, {
+        "name": "block1_bwd_parts",
+        "route": "cuda",
+        "source": "em_adapt_torch/csrc/block1_bwd.cu",
+        "replaces": "tools/bench_block1_bwd_parts.py:169",
+        "launches": parts_result["launches"],
+        "max_abs_err": parts_result["max_abs_err"],
+        "ms": parts_result["ms"],
+        "plain_ms": parts_result["plain_ms"],
+        "bound_ms": parts_result["bound_ms"],
+        "bound_by": parts_result["bound_by"],
+        "library_ms": parts_result["library_ms"],
     }]
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from its imports to the results")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

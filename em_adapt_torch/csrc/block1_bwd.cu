@@ -59,6 +59,24 @@
 // 1.75 ms at B = 6, 12x its bound (PERF.md).
 //
 // No fast-math: flush-to-zero would change small values before rounding.
+//
+// Per-part builds (em_adapt_torch/tools/bench_block1_bwd_parts.py, the
+// counterpart of the probe tools/bench_block1_bwd_parts.py). Each macro
+// switches one part off at compile time; with none defined this file is
+// the production K3. What a variant then computes is stated beside its
+// #if and held against a plain version, except K3_SKIP_UPDATE's:
+//   K3_SKIP_FM         no max or first-match search: every window routes to
+//                      its position (0, 0)
+//   K3_SKIP_POOL       no windows, no routing, dy not read: dz2 := y2
+//   K3_SKIP_CONV2      no conv1_2 product in the recompute: y2 := y1
+//   K3_SKIP_DW2        no dW2 product (its partial update adds zeros)
+//   K3_SKIP_DY1        no dy1 product: dz1 = 0
+//   K3_SKIP_DW1        no dW1 product (its partial update adds zeros)
+//   K3_SKIP_UPDATE     only each CTA's first tile stores into its partial
+//                      row; later tiles neither read nor write it (timing
+//                      only: the result depends on the tile-to-CTA map)
+//   K3_RECOMPUTE_ONLY  y1 and y2 only: db1 := sum of the owned y1, db2 :=
+//                      sum of the owned y2, dw1 = dw2 = 0
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,18 +173,30 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+#if defined(K3_SKIP_DW2) || defined(K3_SKIP_DY1) || defined(K3_SKIP_DW1)
+// A switched-off product leaves its sums 0 in registers the compiler
+// cannot see through, so the code after it stays the production code.
+__device__ __forceinline__ void opaque(float& v) { asm volatile("" : "+f"(v)); }
+#endif
+
 // Stores the tile's sum into the CTA's row (the first tile) or adds it.
 __device__ __forceinline__ void accumulate(float* p, float v, bool first) {
+#if defined(K3_SKIP_UPDATE)
+  if (first) *p = v;
+#else
   *p = first ? v : *p + v;
+#endif
 }
 
 __device__ __forceinline__ void accumulate2(float* p, float lo, float hi, bool first) {
   float2* q = reinterpret_cast<float2*>(p);
   if (first) {
     *q = make_float2(lo, hi);
+#if !defined(K3_SKIP_UPDATE)
   } else {
     const float2 o = *q;
     *q = make_float2(o.x + lo, o.y + hi);
+#endif
   }
 }
 
@@ -233,6 +263,12 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     b2s[i] = b2[i];
   }
   for (int i = tid; i < kRow; i += kThreads) dz2s[kNDz * kRow + i] = __float2bfloat16_rn(0.f);
+#if defined(K3_SKIP_FM)
+  for (int i = tid; i < kWin * kF; i += kThreads) wfirst[i] = 0;  // window position (0, 0)
+#endif
+#if defined(K3_RECOMPUTE_ONLY)
+  for (int i = tid; i < kPartFloats; i += kThreads) part[i] = 0.f;  // dw1 = dw2 = 0
+#endif
 
   const uint32_t* y1w = reinterpret_cast<const uint32_t*>(y1s);
   const uint32_t* w2w = reinterpret_cast<const uint32_t*>(w2s);
@@ -308,6 +344,18 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
     __syncthreads();
 
+#if defined(K3_SKIP_CONV2)
+    // y2 := y1 at the same position (y1 local (r + 1, c + 1)); y1 is 0
+    // outside the image already.
+    for (int i = tid; i < kMTiles * 16 * (kF / 8); i += kThreads) {
+      const int m = i % (kMTiles * 16), cg = i / (kMTiles * 16);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < kM)
+        v = *reinterpret_cast<const uint4*>(y1s + ((m / kY2W + 1) * kY1W + m % kY2W + 1) * kRow +
+                                            cg * 8);
+      *reinterpret_cast<uint4*>(y2s + m * kRow + cg * 8) = v;
+    }
+#else
     {
       float acc[2][4][4];
 #pragma unroll
@@ -358,14 +406,48 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         }
       }
     }
+#endif
     __syncthreads();
 
+#if defined(K3_RECOMPUTE_ONLY)
+    // db1 := sum of the owned y1 (warps 0-7), db2 := sum of the owned y2
+    // (warps 8-15); four channels a thread, positions over half-warps.
+    {
+      const int cq = (lane & 15) * 4;
+      const bool of_y2 = warp >= 8;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = (warp & 7) * 2 + (lane >> 4); k < kOwn; k += 16) {
+        const int r = k / kOwnW, c = k % kOwnW;
+        const __nv_bfloat16* src = of_y2 ? y2s + ((r + 2) * kY2W + c + 2) * kRow
+                                         : y1s + ((r + 3) * kY1W + c + 3) * kRow;
+        const uint2 v = *reinterpret_cast<const uint2*>(src + cq);
+        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] += __bfloat162float(ve[e]);
+      }
+      float* red = of_y2 ? red2 + (warp - 8) * kF : red1 + warp * kF;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] += __shfl_xor_sync(0xffffffffu, s[e], 16);
+        if (lane < 16) red[cq + e] = s[e];
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * kF) {
+      const float* red = tid < kF ? red1 : red2;
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += red[k * kF + tid % kF];
+      accumulate(part + (tid < kF ? kDb1Off : kDb2Off) + tid % kF, s, first);
+    }
+#else
     // ---- 2. windows: max, first match, dy -------------------------------
     // Window (wp, wq) is pooled (P0 - 1 + wp, Q0 - 1 + wq) and covers y2
     // local rows 2wp..2wp+2 and cols 2wq..2wq+2. Outside the image y2 is 0
     // and dy is 0, so whatever they route dies at the ReLU mask.
     // dy: neighbouring threads read neighbouring pooled columns; the
     // padded rows of wdy keep their stores off each other's banks.
+#if !defined(K3_SKIP_POOL)
     const __nv_bfloat16* dyb = dy + static_cast<size_t>(b) * kF * OH * OW;
     for (int i = tid; i < kWin * kF; i += kThreads) {
       const int w = i % kWin, ch = i / kWin;
@@ -376,6 +458,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
     // The max and its first match: neighbouring threads take neighbouring
     // channels of one window.
+#if !defined(K3_SKIP_FM)
     for (int i = tid; i < kWin * kF; i += kThreads) {
       const int ch = i % kF, w = i / kF;
       const int wp = w / kWinW, wq = w % kWinW;
@@ -391,7 +474,9 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       for (int k = 8; k >= 0; --k) fm = v[k] == mx ? k : fm;
       wfirst[w * kF + ch] = static_cast<unsigned char>(fm);
     }
+#endif
     __syncthreads();
+#endif
 
     // ---- 3. dz2 on the 12 x 14 grid; db2 over the owned 10 x 12 ----------
     // Grid (i, j) is y2 local (i + 1, j + 1). Thread: four neighbouring
@@ -405,6 +490,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         const int i = pos / kDzW, j = pos % kDzW;
         const int r = i + 1, c = j + 1;
         float dz[4] = {0.f, 0.f, 0.f, 0.f};
+#if !defined(K3_SKIP_POOL)
 #pragma unroll
         for (int u = 0; u < 3; ++u) {
           if ((r - u) & 1) continue;
@@ -422,8 +508,13 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                 dz[e] = __bfloat162float(__float2bfloat16_rn(dz[e] + __bfloat162float(dv[e])));
           }
         }
+#endif
         const uint2 y = *reinterpret_cast<const uint2*>(y2s + (r * kY2W + c) * kRow + cq);
         const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&y);
+#if defined(K3_SKIP_POOL)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dz[e] = __bfloat162float(yv[e]);  // dz2 := y2
+#endif
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (!(__bfloat162float(yv[e]) > 0.f)) dz[e] = 0.f;
@@ -460,6 +551,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+#if !defined(K3_SKIP_DW2)
       const int ka = (lane & 7) + ((lane >> 4) << 3);   // A: position row of this lane
       const int ma = ((lane >> 3) & 1) * 8;             // A: cin offset
       const int kb = (lane & 7) + (((lane >> 3) & 1) << 3);  // B: position row
@@ -481,6 +573,26 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
           mma_bf16(acc[tap][1], afr, bfr[2], bfr[3]);
         }
       }
+#else
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) opaque(acc[t][j][e]);
+#endif
+#if defined(K3_SKIP_UPDATE)
+      if (first) {
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              *reinterpret_cast<float2*>(part + dw2_offset(t, cb, nq, j, half, lane)) =
+                  make_float2(acc[t][j][2 * half], acc[t][j][2 * half + 1]);
+      }
+#else
       // Into the CTA's row, three taps at a time: their 12 loads are in
       // flight together rather than one round trip to L2 per value.
 #pragma unroll
@@ -505,6 +617,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                   make_float2(old[t][j][half].x + acc[t0 + t][j][2 * half],
                               old[t][j][half].y + acc[t0 + t][j][2 * half + 1]);
       }
+#endif
     }
 
     // ---- 4b. dy1 at the owned y1 positions; dz1, db1 ----------------------
@@ -517,6 +630,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#if !defined(K3_SKIP_DY1)
       int base[2];  // dz2 grid index of q + (1, 1) for rows g and g + 8
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -543,6 +657,12 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
           }
         }
       }
+#else
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) opaque(acc[j][e]);
+#endif
       float s[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = 0.f;
@@ -589,6 +709,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     {
       const int mt = warp >> 3, nt = warp & 7;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#if !defined(K3_SKIP_DW1)
       int xo[2];  // xs offset of row m at owned position 0, or -1 for a zero row
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -615,6 +736,10 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         const uint32_t bb1 = pack_bf16(dz1s[(k0 + 8) * kRow + n], dz1s[(k0 + 9) * kRow + n]);
         mma_bf16(acc, afr, bb0, bb1);
       }
+#else
+#pragma unroll
+      for (int e = 0; e < 4; ++e) opaque(acc[e]);
+#endif
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int m = mt * 16 + g + 8 * half;
@@ -623,6 +748,7 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                       acc[2 * half + 1], first);
       }
     }
+#endif
   }
 }
 

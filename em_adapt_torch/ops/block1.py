@@ -83,10 +83,12 @@ BWD_PARTIAL_FLOATS = 27 * 64 + 64 + 576 * 64 + 64
 _LAUNCH = {"block1_fwd": ("em_block1_fwd_launch", 6), "block1_bwd": ("em_block1_bwd_launch", 11)}
 
 
-def _lib(name: str) -> ctypes.CDLL:
+def _lib(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The typed library of ``csrc/<name>.cu``, built with ``defines``
+    (none: the production build)."""
     from em_adapt_torch.utils.build import load
 
-    lib = load(name)
+    lib = load(name, defines)
     if not getattr(lib, "_em_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn, pointers = _LAUNCH[name]
@@ -238,6 +240,17 @@ def block1_bwd(
     (H+1)//2, (W+1)//2]: (dw1 [F,3,3,3], db1 [F], dw2 [F,F,3,3], db2 [F]),
     all f32. On a CUDA tensor it launches K3 (x and dy bf16 and contiguous,
     F = 64); on a CPU tensor it runs :func:`block1_bwd_plain`."""
+    if check_bwd_args(x, dy, w1) == "cpu":
+        return block1_bwd_plain(x, w1, b1, w2, b2, dy)
+    grads = launch_bwd(x, dy, w1, b1, w2, b2)
+    global bwd_launches
+    bwd_launches += 1
+    return grads
+
+
+def check_bwd_args(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor) -> str:
+    """The checks of :func:`block1_bwd`'s input that do not depend on the
+    device; its device type ("cpu" or "cuda"), or raises."""
     b, cin, h, w = x.shape
     if not block1_supported(h, w):
         raise ValueError(f"block1_bwd needs square odd inputs, got {h}x{w}")
@@ -245,21 +258,29 @@ def block1_bwd(
     if tuple(dy.shape) != (b, w1.shape[0], oh, ow) or dy.device != x.device:
         raise ValueError(f"block1_bwd: dy must be {(b, w1.shape[0], oh, ow)} on {x.device}, got "
                          f"{tuple(dy.shape)} on {dy.device}")
-    if x.device.type == "cpu":
-        return block1_bwd_plain(x, w1, b1, w2, b2, dy)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"block1_bwd: unsupported device {x.device}")
+    return x.device.type
+
+
+def launch_bwd(
+    x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+    b2: torch.Tensor, defines: tuple[str, ...] = (),
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/block1_bwd.cu`` built with ``defines`` (none:
+    K3 itself) on CUDA tensors, counted by its caller."""
     if dy.dtype != torch.bfloat16 or not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError(f"block1_bwd on the card takes contiguous x and bf16 dy, got "
                          f"{dy.dtype} dy, contiguous: x {x.is_contiguous()}, "
                          f"dy {dy.is_contiguous()}")
+    b, _, h, w = x.shape
     w1c, b1c, w2c, b2c = _card_args("block1_bwd", x, w1, b1, w2, b2)
     f32 = dict(dtype=torch.float32, device=x.device)
     dw1, db1 = torch.empty(64, 3, 3, 3, **f32), torch.empty(64, **f32)
     dw2, db2 = torch.empty(64, 64, 3, 3, **f32), torch.empty(64, **f32)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     partials = torch.empty(sms, BWD_PARTIAL_FLOATS, **f32)  # one row per CTA
-    lib = _lib("block1_bwd")
+    lib = _lib("block1_bwd", defines)
     with torch.cuda.device(x.device):
         err = lib.em_block1_bwd_launch(
             x.data_ptr(), dy.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
@@ -267,8 +288,6 @@ def block1_bwd(
             partials.data_ptr(), b, h, w, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _check_launch(lib, err, "block1 backward")
-    global bwd_launches
-    bwd_launches += 1
     return dw1, db1, dw2, db2
 
 

@@ -4,9 +4,11 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), under ``build/em_adapt_torch/`` in the checkout, named by a
 hash of the source and the flags: an unchanged source is not rebuilt.
-A failed build raises. No ``--use_fast_math``: flush-to-zero would
-change subnormal values, and the E-step's thresholds must equal
-``np.partition``'s bits.
+``defines`` (macro names, passed as ``-D``) build a variant of a source
+into a library of its own, whose file name carries them; with none the
+library is the production one. A failed build raises. No
+``--use_fast_math``: flush-to-zero would change subnormal values, and
+the E-step's thresholds must equal ``np.partition``'s bits.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
-#: nvcc's report (registers, shared memory, spills) of each build made here.
-build_logs: dict[str, str] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+#: nvcc's report (registers, shared memory, spills) of each build, by
+#: (source name, defines); kept beside the library and read back from
+#: there when the library was built by an earlier process.
+build_logs: dict[tuple[str, tuple[str, ...]], str] = {}
 
 
 def _nvcc() -> str:
@@ -43,32 +47,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    tag = "".join(f"+{d}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless it is built already; its path."""
-    target = _target(name)
-    if target.exists():
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``-D`` for each of ``defines``
+    unless it is built already; the library's path."""
+    defines = tuple(defines)
+    target = _target(name, defines)
+    log = target.with_suffix(".log")
+    if target.exists() and log.exists():
+        build_logs.setdefault((name, defines), log.read_text())
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    build_logs[name] = proc.stdout
+    build_logs[(name, defines)] = proc.stdout
     if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {name}.cu failed (nvcc exit {proc.returncode}):\n"
-                           f"{proc.stdout}")
+        raise RuntimeError(f"CUDA build of {name}.cu {list(defines)} failed (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, target)
     return target
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` with ``defines``
+    (built if needed)."""
+    key = (name, tuple(defines))
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)))
-        return _loaded[name]
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(str(build(*key)))
+        return _loaded[key]
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many SASS instructions of ``opcode`` (e.g. "HMMA") the library's
+    device code holds, as ``cuobjdump -sass`` of the toolkit lists them."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(library)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {library.name} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}")
+    return sum(1 for line in proc.stdout.splitlines()
+               if any(w == opcode or w.startswith(opcode + ".")
+                      for w in line.replace(";", " ").split()))

@@ -231,6 +231,55 @@ def test_block1_bwd_kernel_is_reproducible(cuda_device):
 
 
 @pytest.mark.gpu
+def test_block1_bwd_variants_build_without_spills(cuda_device):
+    """Every per-part build of csrc/block1_bwd.cu compiles with no spills;
+    ``full`` is K3's own library, and ``skip_update`` keeps every HMMA of
+    it (its later tiles' products are not dropped with their stores)."""
+    from em_adapt_torch.tools import bench_block1_bwd_parts as parts
+    from em_adapt_torch.utils import build
+
+    paths = parts.build_variants()
+    assert paths["full"] == build.build("block1_bwd")
+    reports = parts.variant_reports(paths)
+    for name, r in reports.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, name
+    assert reports["skip_update"]["hmma"] == reports["full"]["hmma"] > 0
+
+
+@pytest.mark.gpu
+def test_block1_bwd_full_variant_is_k3(cuda_device):
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.tools import bench_block1_bwd_parts as parts
+
+    args = _bwd_case(np.random.default_rng(8), 6, 321, "he", cuda_device)
+    got, want = parts.block1_bwd_parts(*args, "full"), k23.block1_bwd(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["skip_fm", "skip_pool", "skip_conv2", "grads_only",
+                                     "skip_dw2", "skip_dy1", "skip_dw1", "recompute_only"])
+def test_block1_bwd_variant_matches_its_plain_version(cuda_device, variant):
+    """Each variant with a definite function against its plain version on
+    integer-valued inputs (exact y1 and y2 on both sides) at B=2, 65^2:
+    within 1e-4 of each leaf's scale, and exactly 0 where it zeroes one."""
+    from em_adapt_torch.device import set_precision
+    from em_adapt_torch.tools import bench_block1_bwd_parts as parts
+
+    set_precision("bfloat16")  # the plain version's f32 convolutions stay f32
+    x, dy, w1, b1, w2, b2 = _bwd_case(np.random.default_rng(65), 2, 65, "ties", cuda_device)
+    before = parts.launches
+    got = parts.block1_bwd_parts(x, dy, w1, b1, w2, b2, variant)
+    torch.cuda.synchronize()
+    assert parts.launches == before + 1
+    want = parts.block1_bwd_parts_plain(x, w1, b1, w2, b2, dy, variant)
+    for name, g, w in zip(("dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+        assert float((g - w).norm()) <= 1e-4 * float(w.norm()), name
+
+
+@pytest.mark.gpu
 def test_bf16_train_step_launches_k2_and_k3_once(cuda_device):
     """One bf16 training step with block1_impl="pallas" at full VGG width
     (33x33, a narrow head): K1, K2 and K3 each launch once, the loss and
