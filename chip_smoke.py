@@ -54,6 +54,10 @@ else:
 STEPS = 10
 #: Images of the evaluation path: 11 batches of 6, the last one padded.
 EVAL_IMAGES = 62
+#: K3's milliseconds per launch at B=6, 321x321 while each later tile
+#: read, added and wrote back its CTA's partial row and loaded its own x
+#: and dy: 1.7090 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+K3_READ_ADD_WRITE_MS = 1.7090
 
 
 def log(msg: str) -> None:
@@ -815,10 +819,13 @@ def check_block1_bwd(device, timed: bool) -> dict:
     and 7.8e-4) and a fault of the tiling (a position counted twice or
     never: O(1)) does not. Two runs of K3 give the same bits. With
     ``timed``, its times at the main path's shape (B=6, 321x321) beside
-    the plain version, the cuDNN bf16 chain's backward and the bound."""
+    the plain version, the cuDNN bf16 chain's backward, the bound and
+    the read-add-write K3's recorded time; untimed too, its shared
+    memory per CTA and the reductions in its SASS."""
     import torch
 
     from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.utils import build
 
     cases = [("B=6 321x321", 6, 321, "he"), ("B=6 321x321 ties", 6, 321, "ties"),
              ("B=1 33x33", 1, 33, "he"), ("B=2 41x41 large bias", 2, 41, "large bias"),
@@ -862,6 +869,12 @@ def check_block1_bwd(device, timed: bool) -> dict:
     if failed:
         raise AssertionError(f"K3 outside its bound of the plain version, or not reproducible, "
                              f"in {failed}")
+    log(f"K3 dynamic shared memory per CTA: "
+        f"{k23._lib('block1_bwd').em_block1_bwd_smem_bytes()} B of the 232,448 B a block can use")
+    library = build.build("block1_bwd")
+    ftz = {t: build.sass_count(library, f"REDG.E.ADD.{t}.FTZ") for t in ("F32", "F32x2", "F32x4")}
+    log(f"K3's SASS: {build.sass_count(library, 'REDG')} REDG reductions into the partial row, "
+        f"f32 adds that flush subnormals (.FTZ) among them: {ftz}")
     if not timed:
         return dict(max_abs_err=max_err)
 
@@ -894,6 +907,9 @@ def check_block1_bwd(device, timed: bool) -> dict:
         f"{bound['ops_no_recompute']} FLOP without it; {bound['bytes']} B at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s give {bound['bytes_ms']:.6f} ms); "
         f"{ops / ms / 1e9:.1f} TFLOP/s achieved")
+    log(f"K3 {ms:.4f} ms per launch against {K3_READ_ADD_WRITE_MS:.4f} ms for the read-add-write "
+        f"K3 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) and {library_ms:.4f} ms for the cuDNN "
+        f"chain's backward in this run: {ms / library_ms:.3f} of the chain's time")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 

@@ -31,32 +31,68 @@
 // one more (12 x 14), and so the 7 x 8 pooled windows that cover that
 // ring: their y2 is a 15 x 17 region, their y1 17 x 19 and x 19 x 21 --
 // the tile geometry of K2, whose recompute code this reuses. Per tile:
-//   1. x tile, conv1_1 (SIMT f32 FMA), conv1_2 (mma.sync m16n8k16 bf16,
-//      M = 255 y2 positions, N = 64, K = 576), as K2.
-//   2. Per window and channel: the max, its first match and dy (dy read
-//      with neighbouring threads on neighbouring pooled columns).
-//   3. dz2 on the 12 x 14 grid, four channels of one position a thread;
-//      db2's partial sums over the owned 10 x 12 part.
+//   1. conv1_1 (SIMT f32 FMA), conv1_2 (mma.sync m16n8k16 bf16, M = 255
+//      y2 positions, N = 64, K = 576), as K2, from the x tile that the
+//      previous tile staged.
+//   2. Per window and channel: the max and its first match.
+//   3. dz2 on the 12 x 14 grid, four channels of one position a thread,
+//      from the windows' dy that the previous tile staged; db2's partial
+//      sums over the owned 10 x 12 part.
 //   4. dW2 (M = 576 (tap, cin), N = 64, K = 120 owned positions) with
-//      ldmatrix.trans fragments of y1 and dz2; dy1 (M = 120 owned y1
-//      positions, N = 64, K = 576) with w2 read transposed (ldmatrix.trans
-//      on the same w2 tile); its epilogue masks by y1 > 0, sums db1 in f32
-//      and rounds dz1 to bf16.
+//      ldmatrix.trans fragments of y1 and dz2, tap by tap, each tap's sums
+//      sent to the CTA's partial row as soon as they are complete; dy1
+//      (M = 120 owned y1 positions, N = 64, K = 576) with w2 read
+//      transposed (ldmatrix.trans on the same w2 tile); its epilogue masks
+//      by y1 > 0, sums db1 in f32 and rounds dz1 to bf16.
 //   5. dW1 (M = 27 -> 32, N = 64, K = 120) from x and dz1.
 // Blocks run in no order, so each CTA sums its tiles' dW/db into its own
-// row of an f32 `partials` buffer [CTAs, 38720] (the first tile stores,
-// later ones add; the dW2 part three taps' loads at a time), and a second
-// kernel sums the rows in a fixed order and writes the OIHW gradients. No
-// atomics: two runs give the same bits.
+// row of an f32 `partials` buffer [CTAs, 38720], and a second kernel sums
+// the rows in row order and writes the OIHW gradients.
+//
+// No wait on device memory inside the tile loop. A CTA is the SM's only
+// one and its phases are separated by __syncthreads, so a load that all
+// 16 warps wait on idles the whole SM. Three such round trips are gone:
+//   - The partial row's read-add-write. The first tile stores its sums;
+//     each later tile issues fire-and-forget reductions (red.global.add,
+//     sm_90) with no load, and the warp goes straight on. The dW2 part is
+//     thread-major, ((warp * 9 + tap) * 2 + j) * 128 + lane * 4 + e for the
+//     mma sums acc[tap][j][e], so a thread's four sums are 16 contiguous
+//     bytes (red.global.add.v4.f32) and a warp's 512; dw1's pairs take .v2,
+//     db1 and db2 scalar reductions. Each address has one writer thread,
+//     and the PTX memory model orders one thread's writes to one location
+//     in program order: the adds land in tile order, the f32 sums of the
+//     read-add-write, and two runs give the same bits. red.add.f32 flushes
+//     subnormal inputs and results to zero (its SASS for sm_90a is
+//     REDG.E.ADD.F32*.FTZ; chip_smoke.py counts them), where a plain add
+//     keeps them: a tile sum or a running sum below 2^-126 would differ
+//     from the read-add-write's. The checked cases' sums are far above that
+//     and give the read-add-write's bits (PERF.md).
+//   - The x staging and the dy gather at the top of each phase that needs
+//     them. The next tile's x (at most 3 two-byte loads a thread) and the
+//     dy of its windows (7) are loaded into registers at the start of a
+//     tile, before conv1_1, and written after it into the second of two xs
+//     and wdy buffers: conv1_1's microseconds hide their latency, and
+//     conv1_2's and dW2's register peaks do not carry them. TMA cannot take
+//     these tensors (its strides are multiples of 16 B; x's rows are 642 B
+//     apart at 321^2, dy's 322 B), nor cp.async (4 B at least; a row of odd
+//     width starts at an odd element). A CTA's first tile loads its own
+//     before the loop; its last loads nothing.
+// dW2 runs tap by tap so that its 18 reductions a warp go out while the
+// product runs, not in one burst at its end, and so that only 8 of its 72
+// sums are live at once; all ten builds stay at 128 registers or fewer
+// with no spills.
 //
 // What bounds it: operations. 141 GFLOP at B = 6, 321^2 with the
 // recompute (93 without) take 0.14 ms at the 989 TFLOP/s dense bf16 peak;
-// x and dy are 23.6 MB, 0.007 ms; the partials' round trip adds about
-// 40 MB. This first version recomputes 255 y2 positions per 120 it owns
-// (a tile of K2's size, held to it by the 227 KB of shared memory), uses
-// mma.sync rather than wgmma, runs its phases one after another inside a
-// CTA, and reads and writes its dW2 partial (147 KB) in L2 once per tile:
-// 1.75 ms at B = 6, 12x its bound (PERF.md).
+// x and dy are 23.6 MB, 0.007 ms; the partial rows take 0.83 GB of
+// stores and reductions in L2 (155 KB a tile). What is left: K3
+// recomputes 255 y2 positions per 120 it owns (a tile of K2's size, held
+// to it by the 227 KB of shared memory), runs conv1_1 on the FMA units and
+// the products on mma.sync rather than wgmma, runs its phases one after
+// another inside a CTA, and still issues the partial row's reductions
+// through the SM's load/store path. On an NVIDIA H100 80GB HBM3 at 700 W it takes 1.377 ms
+// at B = 6, against 1.709 for the version with the read-add-write and the
+// waits, and 1.538 for the cuDNN chain's backward (PERF.md).
 //
 // No fast-math: flush-to-zero would change small values before rounding.
 //
@@ -67,16 +103,17 @@
 // #if and held against a plain version, except K3_SKIP_UPDATE's:
 //   K3_SKIP_FM         no max or first-match search: every window routes to
 //                      its position (0, 0)
-//   K3_SKIP_POOL       no windows, no routing, dy not read: dz2 := y2
+//   K3_SKIP_POOL       no windows, no routing, dy neither fetched nor read:
+//                      dz2 := y2
 //   K3_SKIP_CONV2      no conv1_2 product in the recompute: y2 := y1
-//   K3_SKIP_DW2        no dW2 product (its partial update adds zeros)
+//   K3_SKIP_DW2        no dW2 product (its reductions add zeros)
 //   K3_SKIP_DY1        no dy1 product: dz1 = 0
-//   K3_SKIP_DW1        no dW1 product (its partial update adds zeros)
+//   K3_SKIP_DW1        no dW1 product (its reductions add zeros)
 //   K3_SKIP_UPDATE     only each CTA's first tile stores into its partial
-//                      row; later tiles neither read nor write it (timing
-//                      only: the result depends on the tile-to-CTA map)
-//   K3_RECOMPUTE_ONLY  y1 and y2 only: db1 := sum of the owned y1, db2 :=
-//                      sum of the owned y2, dw1 = dw2 = 0
+//                      row; later tiles issue no reductions (timing only:
+//                      the result depends on the tile-to-CTA map)
+//   K3_RECOMPUTE_ONLY  y1 and y2 only (dy not fetched): db1 := sum of the
+//                      owned y1, db2 := sum of the owned y2, dw1 = dw2 = 0
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,7 +151,15 @@ constexpr int kOwnW = 2 * kTQ;     // 12
 constexpr int kOwn = 2 * kTP * kOwnW;  // 120 owned positions
 constexpr int kOwnPad = 128;       // owned positions rounded up to 16
 
-// Rows of `partials`: dw1 [(u, v, c)][n], db1, dw2 [(u, v, cin)][n], db2.
+constexpr int kXN = kCin * kXH * kXW;                      // 1197 x values a tile
+constexpr int kXPerThread = (kXN + kThreads - 1) / kThreads;  // 3
+constexpr int kDyPerThread = kWin * kF / kThreads;          // 7
+#if !defined(K3_SKIP_POOL) && !defined(K3_RECOMPUTE_ONLY)
+#define K3_READS_DY 1
+#endif
+
+// Rows of `partials`: dw1 [(u, v, c)][n], db1, dw2 thread-major (see
+// dw2_slot), db2.
 constexpr int kDw1Off = 0;
 constexpr int kDb1Off = kDw1Off + 27 * kF;
 constexpr int kDw2Off = kDb1Off + kF;
@@ -125,6 +170,8 @@ static_assert(kMTiles == 2 * (kThreads / 32 / 2), "16 warps: 8 M-tile pairs x 2 
 static_assert(kNDz % 2 == 0 && (kNDz / 2 / kDzW) % 2 == 0, "dz2: halves of even rows");
 static_assert(kOwnPad / 16 * 2 == kThreads / 32, "dy1: 8 M tiles x 2 N halves");
 static_assert(kOwnPad * kRow <= kMTiles * 16 * kRow, "dz1 fits where y2 was");
+static_assert(kWin * kF % kThreads == 0, "dy: the same count of loads in every thread");
+static_assert(kDw2Off % 4 == 0 && kPartFloats % 4 == 0, "dW2 slots 16-byte aligned");
 
 constexpr size_t kW2Bytes = sizeof(__nv_bfloat16) * kF * kW2Row;
 constexpr size_t kY1Bytes = sizeof(__nv_bfloat16) * kNY1 * kRow;
@@ -133,15 +180,17 @@ constexpr size_t kDz2Bytes = sizeof(__nv_bfloat16) * (kNDz + 1) * kRow;  // + on
 constexpr size_t kW1Bytes = sizeof(float) * 27 * kF;
 constexpr size_t kBiasBytes = sizeof(float) * 2 * kF;
 constexpr size_t kRedBytes = sizeof(float) * (8 + kThreads / 32) * kF;
-constexpr size_t kXBytes = sizeof(float) * kCin * kXH * kXW;
-constexpr size_t kWdyBytes = sizeof(__nv_bfloat16) * kWin * kWdyRow;
+constexpr size_t kXBytes = sizeof(float) * kXN;                     // one of two buffers
+constexpr size_t kWdyBytes = sizeof(__nv_bfloat16) * kWin * kWdyRow;  // one of two buffers
 constexpr size_t kWfirstBytes = kWin * kF;
 constexpr size_t kSmemBytes = kW2Bytes + kY1Bytes + kY2Bytes + kDz2Bytes + kW1Bytes +
-                              kBiasBytes + kRedBytes + kWdyBytes + kWfirstBytes + kXBytes;
+                              kBiasBytes + kRedBytes + 2 * kWdyBytes + kWfirstBytes +
+                              2 * kXBytes;  // 224,424
 static_assert((kW2Bytes + kY1Bytes + kY2Bytes + kDz2Bytes) % 16 == 0, "w1s 16-byte aligned");
 static_assert((kW1Bytes + kBiasBytes + kRedBytes) % 8 == 0 && kWdyRow % 4 == 0,
               "wdy rows 8-byte aligned");
-static_assert(kWdyBytes % 4 == 0 && kWfirstBytes % 4 == 0, "wfirst and xs 4-byte aligned");
+static_assert(kWdyBytes % 8 == 0 && kWfirstBytes % 4 == 0,
+              "the second wdy 8-byte, wfirst and xs 4-byte aligned");
 static_assert(kSmemBytes <= 232448, "shared memory of one block");
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -179,32 +228,122 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 __device__ __forceinline__ void opaque(float& v) { asm volatile("" : "+f"(v)); }
 #endif
 
-// Stores the tile's sum into the CTA's row (the first tile) or adds it.
+// Stores the tile's sum into the CTA's row (the first tile) or adds it
+// there with a fire-and-forget reduction: no result, no wait. On sm_90
+// red.add.f32 flushes subnormal inputs and results to zero (see above).
 __device__ __forceinline__ void accumulate(float* p, float v, bool first) {
-#if defined(K3_SKIP_UPDATE)
-  if (first) *p = v;
-#else
-  *p = first ? v : *p + v;
-#endif
-}
-
-__device__ __forceinline__ void accumulate2(float* p, float lo, float hi, bool first) {
-  float2* q = reinterpret_cast<float2*>(p);
   if (first) {
-    *q = make_float2(lo, hi);
+    *p = v;
 #if !defined(K3_SKIP_UPDATE)
   } else {
-    const float2 o = *q;
-    *q = make_float2(o.x + lo, o.y + hi);
+    asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(__cvta_generic_to_global(p)), "f"(v));
 #endif
   }
 }
 
-// Offset in a partial row of the dW2 pair of warp (cb, nq)'s lane: tap,
-// n-tile j of its two, rows g (half 0) or g + 8 (half 1) of its cin block.
-__device__ __forceinline__ int dw2_offset(int tap, int cb, int nq, int j, int half, int lane) {
-  const int cin = cb * 16 + (lane >> 2) + 8 * half;
-  return kDw2Off + (tap * kF + cin) * kF + (nq * 2 + j) * 8 + (lane & 3) * 2;
+__device__ __forceinline__ void accumulate2(float* p, float lo, float hi, bool first) {
+  if (first) {
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+#if !defined(K3_SKIP_UPDATE)
+  } else {
+    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(__cvta_generic_to_global(p)),
+                 "f"(lo), "f"(hi));
+#endif
+  }
+}
+
+__device__ __forceinline__ void accumulate4(float* p, const float* v, bool first) {
+  if (first) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#if !defined(K3_SKIP_UPDATE)
+  } else {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                     __cvta_generic_to_global(p)),
+                 "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));
+#endif
+  }
+}
+
+// The four dW2 sums acc[tap][j][0..3] of a warp's lane in a partial row:
+// thread-major, 16 contiguous bytes a lane, 512 a warp.
+__device__ __forceinline__ int dw2_slot(int warp, int tap, int j, int lane) {
+  return kDw2Off + ((warp * 9 + tap) * 2 + j) * 128 + lane * 4;
+}
+
+// A 16-bit load into a register (bf16 bits), 0 where `in` is false; asm
+// volatile keeps it where it is written, ahead of the work that hides it.
+__device__ __forceinline__ unsigned short ldg_u16(const __nv_bfloat16* p, bool in) {
+  unsigned short v = 0;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.nc.u16 %0, [%1];\n}\n"
+      : "+h"(v)
+      : "l"(__cvta_generic_to_global(p)), "r"(static_cast<int>(in)));
+  return v;
+}
+
+// A tile's origin: its image and first pooled row and column.
+struct Origin {
+  int b, P0, Q0;
+};
+
+__device__ __forceinline__ Origin origin(int tile, int tiles_h, int tiles_w) {
+  const int rem = tile % (tiles_h * tiles_w);
+  return {tile / (tiles_h * tiles_w), (rem / tiles_w) * kTP, (rem % tiles_w) * kTQ};
+}
+
+// A tile's x (19 x 21 per channel from global row 2P0 - 5, column
+// 2Q0 - 5) and its windows' dy (pooled (P0 - 1 + wp, Q0 - 1 + wq)), 0
+// outside the image, as bf16 bits in registers: this thread's elements
+// i = tid + k * kThreads.
+__device__ __forceinline__ void fetch_x(unsigned short (&r)[kXPerThread],
+                                        const __nv_bfloat16* x, Origin o, int H, int W,
+                                        int tid) {
+  const __nv_bfloat16* xb = x + static_cast<size_t>(o.b) * kCin * H * W;
+  const int xr0 = 2 * o.P0 - 5, xc0 = 2 * o.Q0 - 5;
+#pragma unroll
+  for (int k = 0; k < kXPerThread; ++k) {
+    const int i = tid + k * kThreads;
+    const int c = i / (kXH * kXW), row = (i / kXW) % kXH, col = i % kXW;
+    const int R = xr0 + row, C = xc0 + col;
+    r[k] = ldg_u16(xb + (static_cast<size_t>(c) * H + R) * W + C,
+                   i < kXN && R >= 0 && R < H && C >= 0 && C < W);
+  }
+}
+
+__device__ __forceinline__ void fetch_dy(unsigned short (&r)[kDyPerThread],
+                                         const __nv_bfloat16* dy, Origin o, int H, int W,
+                                         int tid) {
+  const int OH = (H + 1) / 2, OW = (W + 1) / 2;
+  const __nv_bfloat16* dyb = dy + static_cast<size_t>(o.b) * kF * OH * OW;
+#pragma unroll
+  for (int k = 0; k < kDyPerThread; ++k) {
+    const int i = tid + k * kThreads;
+    const int w = i % kWin, ch = i / kWin;
+    const int P = o.P0 - 1 + w / kWinW, Q = o.Q0 - 1 + w % kWinW;
+    r[k] = ldg_u16(dyb + (static_cast<size_t>(ch) * OH + P) * OW + Q,
+                   P >= 0 && P < OH && Q >= 0 && Q < OW);
+  }
+}
+
+// Writes what fetch_x and fetch_dy loaded into a tile's xs (f32) and wdy
+// buffers; dy with neighbouring threads on neighbouring windows, whose
+// padded rows keep the stores off each other's banks.
+__device__ __forceinline__ void stage_x(const unsigned short (&r)[kXPerThread], float* xs,
+                                        int tid) {
+#pragma unroll
+  for (int k = 0; k < kXPerThread; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < kXN) xs[i] = __uint_as_float(static_cast<uint32_t>(r[k]) << 16);
+  }
+}
+
+__device__ __forceinline__ void stage_dy(const unsigned short (&r)[kDyPerThread],
+                                         __nv_bfloat16* wdy, int tid) {
+#pragma unroll
+  for (int k = 0; k < kDyPerThread; ++k) {
+    const int i = tid + k * kThreads;
+    wdy[(i % kWin) * kWdyRow + i / kWin] = __ushort_as_bfloat16(r[k]);
+  }
 }
 
 // Word offset (uint32 = 2 bf16) of the y1 row under y2 position m, tap (0, 0).
@@ -236,11 +375,13 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   float* red1 = reinterpret_cast<float*>(sp);  // [8][64] db1 partials of the 8 M tiles
   float* red2 = red1 + 8 * kF;                 // [16][64] db2 partials of the 16 warps
   sp += kRedBytes;
-  __nv_bfloat16* wdy = reinterpret_cast<__nv_bfloat16*>(sp);  // [window][kWdyRow], 8-byte rows
-  sp += kWdyBytes;
+  // Two buffers each of the windows' dy ([window][kWdyRow], 8-byte rows)
+  // and of the x tile: one for this tile, one filled for the next.
+  __nv_bfloat16* wdy2 = reinterpret_cast<__nv_bfloat16*>(sp);
+  sp += 2 * kWdyBytes;
   unsigned char* wfirst = sp;  // [window][64], 0..8
   sp += kWfirstBytes;
-  float* xs = reinterpret_cast<float*>(sp);
+  float* xs2 = reinterpret_cast<float*>(sp);
   __nv_bfloat16* dz1s = y2s;
 
   const int tid = threadIdx.x;
@@ -248,6 +389,13 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int tiles_h = (OH + kTP - 1) / kTP, tiles_w = (OW + kTQ - 1) / kTQ;
   const int tiles = B * tiles_h * tiles_w;
   float* part = partials + static_cast<size_t>(blockIdx.x) * kPartFloats;
+
+  // The first tile's x and dy, staged into buffer 0 below.
+  unsigned short x0[kXPerThread], dy0[kDyPerThread];
+  fetch_x(x0, x, origin(blockIdx.x, tiles_h, tiles_w), H, W, tid);
+#if defined(K3_READS_DY)
+  fetch_dy(dy0, dy, origin(blockIdx.x, tiles_h, tiles_w), H, W, tid);
+#endif
 
   // Weights once per CTA, as K2. w2 OIHW [n][cin][u][v] -> w2s[n][(u*3+v)*64 + cin].
   for (int i = tid; i < kF * kK2; i += kThreads) {
@@ -263,6 +411,10 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     b2s[i] = b2[i];
   }
   for (int i = tid; i < kRow; i += kThreads) dz2s[kNDz * kRow + i] = __float2bfloat16_rn(0.f);
+  stage_x(x0, xs2, tid);
+#if defined(K3_READS_DY)
+  stage_dy(dy0, wdy2, tid);
+#endif
 #if defined(K3_SKIP_FM)
   for (int i = tid; i < kWin * kF; i += kThreads) wfirst[i] = 0;  // window position (0, 0)
 #endif
@@ -282,25 +434,36 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int ro[4] = {y1_row_words(m_lo), y1_row_words(m_lo + 8), y1_row_words(m_lo + 16),
                      y1_row_words(m_lo + 24)};
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x, buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
     const bool first = tile == static_cast<int>(blockIdx.x);
-    const int b = tile / (tiles_h * tiles_w);
-    const int rem = tile % (tiles_h * tiles_w);
-    const int P0 = (rem / tiles_w) * kTP, Q0 = (rem % tiles_w) * kTQ;
+    const Origin o = origin(tile, tiles_h, tiles_w);
+    const int P0 = o.P0, Q0 = o.Q0;
     const int y2r0 = 2 * P0 - 3, y2c0 = 2 * Q0 - 3;  // global origin of the y2 region
     const int y1r0 = y2r0 - 1, y1c0 = y2c0 - 1;
-    const int xr0 = y1r0 - 1, xc0 = y1c0 - 1;
+    const float* xs = xs2 + buf * kXN;  // this tile's x and dy
+#if defined(K3_READS_DY)
+    const __nv_bfloat16* wdy = wdy2 + buf * (kWin * kWdyRow);
+#endif
+    const int next = tile + static_cast<int>(gridDim.x);
+    // The fetch's per-thread indices come from a copy of tid that the
+    // compiler cannot see through, so they are worked out again in each
+    // tile: hoisted out of the loop, they were held across the products
+    // and spilled at 128 registers.
+    int ftid = tid;
+    asm volatile("" : "+r"(ftid));
 
-    __syncthreads();  // the previous tile's readers are done
-    const __nv_bfloat16* xb = x + static_cast<size_t>(b) * kCin * H * W;
-    for (int i = tid; i < kCin * kXH * kXW; i += kThreads) {
-      const int c = i / (kXH * kXW), r = (i / kXW) % kXH, col = i % kXW;
-      const int R = xr0 + r, C = xc0 + col;
-      xs[i] = (R >= 0 && R < H && C >= 0 && C < W)
-                  ? __bfloat162float(xb[(static_cast<size_t>(c) * H + R) * W + C])
-                  : 0.f;
-    }
+    // The previous tile's readers are done, and this tile's x and dy are
+    // staged (by the previous tile, or before the loop).
     __syncthreads();
+
+    // The next tile's x and dy, loaded now and stored after conv1_1.
+    unsigned short xn[kXPerThread], dyn[kDyPerThread];
+    if (next < tiles) {
+      fetch_x(xn, x, origin(next, tiles_h, tiles_w), H, W, ftid);
+#if defined(K3_READS_DY)
+      fetch_dy(dyn, dy, origin(next, tiles_h, tiles_w), H, W, ftid);
+#endif
+    }
 
     // ---- 1. recompute y1 and y2 exactly as K2 ---------------------------
     for (int i = tid; i < kNY1 * (kF / 8); i += kThreads) {
@@ -341,6 +504,13 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       }
       *reinterpret_cast<uint4*>(y1s + p * kRow + cg * 8) =
           make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+    // Into the other buffers, read since the top of this tile by no one.
+    if (next < tiles) {
+      stage_x(xn, xs2 + (buf ^ 1) * kXN, ftid);
+#if defined(K3_READS_DY)
+      stage_dy(dyn, wdy2 + (buf ^ 1) * (kWin * kWdyRow), ftid);
+#endif
     }
     __syncthreads();
 
@@ -441,23 +611,13 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       accumulate(part + (tid < kF ? kDb1Off : kDb2Off) + tid % kF, s, first);
     }
 #else
-    // ---- 2. windows: max, first match, dy -------------------------------
+    // ---- 2. windows: max and first match --------------------------------
     // Window (wp, wq) is pooled (P0 - 1 + wp, Q0 - 1 + wq) and covers y2
     // local rows 2wp..2wp+2 and cols 2wq..2wq+2. Outside the image y2 is 0
-    // and dy is 0, so whatever they route dies at the ReLU mask.
-    // dy: neighbouring threads read neighbouring pooled columns; the
-    // padded rows of wdy keep their stores off each other's banks.
+    // and dy is 0 (fetch_dy fills it so), so whatever they route dies at
+    // the ReLU mask. Neighbouring threads take neighbouring channels of one
+    // window.
 #if !defined(K3_SKIP_POOL)
-    const __nv_bfloat16* dyb = dy + static_cast<size_t>(b) * kF * OH * OW;
-    for (int i = tid; i < kWin * kF; i += kThreads) {
-      const int w = i % kWin, ch = i / kWin;
-      const int P = P0 - 1 + w / kWinW, Q = Q0 - 1 + w % kWinW;
-      const bool in = P >= 0 && P < OH && Q >= 0 && Q < OW;
-      wdy[w * kWdyRow + ch] = in ? dyb[(static_cast<size_t>(ch) * OH + P) * OW + Q]
-                                 : __float2bfloat16_rn(0.f);
-    }
-    // The max and its first match: neighbouring threads take neighbouring
-    // channels of one window.
 #if !defined(K3_SKIP_FM)
     for (int i = tid; i < kWin * kF; i += kThreads) {
       const int ch = i % kF, w = i / kF;
@@ -541,83 +701,57 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
 
     // ---- 4a. dW2[(tap, cin)][n] = sum over owned p of y1(p + tap) dz2(p) --
-    // Warp: a 16-channel block cb of cin for all 9 taps x 2 n-tiles.
+    // Warp: a 16-channel block cb of cin for all 9 taps x 2 n-tiles, tap by
+    // tap. The owned positions' dz2 fragments (every tap's B operand) stay
+    // in registers; a tap's eight sums a thread (two n-tiles) run over the
+    // 8 k-steps in order and go to the partial row at once, so the row's
+    // traffic spreads over the product.
     {
       const int cb = warp >> 2, nq = warp & 3;
-      float acc[9][2][4];
-#pragma unroll
-      for (int t = 0; t < 9; ++t)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
 #if !defined(K3_SKIP_DW2)
-      const int ka = (lane & 7) + ((lane >> 4) << 3);   // A: position row of this lane
-      const int ma = ((lane >> 3) & 1) * 8;             // A: cin offset
+      const int ka = (lane & 7) + ((lane >> 4) << 3);        // A: position row of this lane
+      const int ma = ((lane >> 3) & 1) * 8;                  // A: cin offset
       const int kb = (lane & 7) + (((lane >> 3) & 1) << 3);  // B: position row
-      const int nb = (lane >> 4) * 8;                    // B: n offset
-#pragma unroll 1
+      const int nb = (lane >> 4) * 8;                        // B: n offset
+      uint32_t bfr[kOwnPad / 16][4];
+      int y1off[kOwnPad / 16];  // y1s element offset of tap (0, 0) per k-step
+#pragma unroll
       for (int ks = 0; ks < kOwnPad / 16; ++ks) {
         const int kbk = ks * 16 + kb;
         const int dzrow = kbk < kOwn ? (kbk / kOwnW + 1) * kDzW + kbk % kOwnW + 1 : kNDz;
-        uint32_t bfr[4];
-        ldsm_x4_trans(bfr, dz2s + dzrow * kRow + nq * 16 + nb);
+        ldsm_x4_trans(bfr[ks], dz2s + dzrow * kRow + nq * 16 + nb);
         int kak = ks * 16 + ka;
         kak = kak < kOwn ? kak : kOwn - 1;  // its B row is the zero row
-        const int y1base = (kak / kOwnW + 2) * kY1W + kak % kOwnW + 2;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          uint32_t afr[4];
-          ldsm_x4_trans(afr, y1s + (y1base + (tap / 3) * kY1W + tap % 3) * kRow + cb * 16 + ma);
-          mma_bf16(acc[tap][0], afr, bfr[0], bfr[1]);
-          mma_bf16(acc[tap][1], afr, bfr[2], bfr[3]);
-        }
+        y1off[ks] = ((kak / kOwnW + 2) * kY1W + kak % kOwnW + 2) * kRow + cb * 16 + ma;
       }
-#else
-#pragma unroll
-      for (int t = 0; t < 9; ++t)
+#endif
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap) {
+        float acc[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) opaque(acc[t][j][e]);
-#endif
-#if defined(K3_SKIP_UPDATE)
-      if (first) {
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#if !defined(K3_SKIP_DW2)
+        const int toff = ((tap / 3) * kY1W + tap % 3) * kRow;
 #pragma unroll
-        for (int t = 0; t < 9; ++t)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              *reinterpret_cast<float2*>(part + dw2_offset(t, cb, nq, j, half, lane)) =
-                  make_float2(acc[t][j][2 * half], acc[t][j][2 * half + 1]);
-      }
+        for (int ks = 0; ks < kOwnPad / 16; ++ks) {
+          uint32_t afr[4];
+          ldsm_x4_trans(afr, y1s + y1off[ks] + toff);
+          mma_bf16(acc[0], afr, bfr[ks][0], bfr[ks][1]);
+          mma_bf16(acc[1], afr, bfr[ks][2], bfr[ks][3]);
+        }
 #else
-      // Into the CTA's row, three taps at a time: their 12 loads are in
-      // flight together rather than one round trip to L2 per value.
 #pragma unroll
-      for (int t0 = 0; t0 < 9; t0 += 3) {
-        float2 old[3][2][2];
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int t = 0; t < 3; ++t)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              old[t][j][half] = first ? make_float2(0.f, 0.f)
-                                      : *reinterpret_cast<const float2*>(
-                                            part + dw2_offset(t0 + t, cb, nq, j, half, lane));
-#pragma unroll
-        for (int t = 0; t < 3; ++t)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              *reinterpret_cast<float2*>(part + dw2_offset(t0 + t, cb, nq, j, half, lane)) =
-                  make_float2(old[t][j][half].x + acc[t0 + t][j][2 * half],
-                              old[t][j][half].y + acc[t0 + t][j][2 * half + 1]);
-      }
+          for (int e = 0; e < 4; ++e) opaque(acc[j][e]);
 #endif
+        // Two stores (the first tile) or reductions, with no wait.
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          accumulate4(part + dw2_slot(warp, tap, j, lane), acc[j], first);
+      }
     }
 
     // ---- 4b. dy1 at the owned y1 positions; dz1, db1 ----------------------
@@ -766,8 +900,14 @@ __global__ void block1_bwd_reduce(const float* __restrict__ partials, int rows,
   } else if (i < kDw2Off) {
     db1[i - kDb1Off] = s;
   } else if (i < kDb2Off) {
-    const int k = (i - kDw2Off) / kF, n = (i - kDw2Off) % kF;  // k = tap * 64 + cin
-    dw2[n * kK2 + (k % kF) * 9 + k / kF] = s;
+    // dw2_slot's thread-major index ((warp * 9 + tap) * 2 + j) * 128 +
+    // lane * 4 + e, back to the mma fragment's (cin, n) and OIHW.
+    const int k = i - kDw2Off;
+    const int e = k & 3, lane = (k >> 2) & 31, j = (k >> 7) & 1;
+    const int tap = (k >> 8) % 9, warp = (k >> 8) / 9;
+    const int cin = (warp >> 2) * 16 + (lane >> 2) + 8 * (e >> 1);
+    const int n = ((warp & 3) * 2 + j) * 8 + (lane & 3) * 2 + (e & 1);
+    dw2[n * kK2 + cin * 9 + tap] = s;
   } else {
     db2[i - kDb2Off] = s;
   }
@@ -821,6 +961,9 @@ int em_block1_bwd_launch(const void* x, const void* dy, const void* w1, const fl
   block1_bwd_reduce<<<(kPartFloats + 255) / 256, 256, 0, s>>>(partials, grid, dw1, db1, dw2, db2);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The main kernel's dynamic shared memory per CTA, in bytes.
+int em_block1_bwd_smem_bytes() { return static_cast<int>(kSmemBytes); }
 
 const char* em_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

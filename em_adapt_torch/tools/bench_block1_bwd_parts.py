@@ -18,7 +18,8 @@ peak. The parts overlap inside a CTA, so the savings need not add up to
 Every variant but ``skip_update`` computes a definite function, stated
 in :func:`block1_bwd_parts_plain`, and the card check in ``chip_smoke.py``
 holds each against it. ``skip_update`` keeps only each CTA's first store
-into its partial row, so its result depends on which tiles a CTA takes;
+into its partial row (its later tiles issue no reductions), so its
+result depends on which tiles a CTA takes;
 its HMMA count, equal to ``full``'s, shows that no product was dropped.
 
 Without a CUDA card the tool raises; it never times the plain versions
@@ -50,7 +51,7 @@ class Variant(NamedTuple):
     #: The parts of K3 it switches off (``full``: its whole work). "pool"
     #: is the windows' max and first match and the dz2 routing,
     #: "first_match" the max and first-match search alone, "update" each
-    #: later tile's read-add-write of the CTA's partial row.
+    #: later tile's reductions into the CTA's partial row.
     parts_off: tuple[str, ...]
 
 
@@ -80,7 +81,8 @@ OWNED_PAD = 128
 DW1_ROWS = 32
 
 NOTE = ("The parts overlap inside a CTA (its phases share barriers, shared memory and the "
-        "SM's issue slots), so the savings need not add up to full's time.")
+        "SM's issue slots; the next tile's x and dy loads run under conv1_1, the partial row's "
+        "reductions under dy1), so the savings need not add up to full's time.")
 
 #: Launches of the variants made by :func:`block1_bwd_parts` (plain runs
 #: not counted). No main path runs them.
@@ -116,7 +118,7 @@ def block1_bwd_parts_plain(
 
     - ``full``: K3's function, ``block1_bwd_plain`` to the bit;
     - ``skip_fm``: dz2 from :func:`route_to_corner_plain`;
-    - ``skip_pool``: dz2 := y2 (dy is not read);
+    - ``skip_pool``: dz2 := y2 (dy is neither fetched nor read);
     - ``skip_conv2``: y2 := y1, then as ``full``;
     - ``grads_only``: y2 := y1 and dz2 := y2, so dz2 = y1;
     - ``skip_dw2``, ``skip_dw1``: that leaf 0, the rest as ``full``;

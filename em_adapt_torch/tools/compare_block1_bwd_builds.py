@@ -1,0 +1,109 @@
+"""K3 against another version of its own source, element by element, on the card.
+
+    git show <commit>:em_adapt_torch/csrc/block1_bwd.cu > build/block1_bwd_other.cu
+    python -m em_adapt_torch.tools.compare_block1_bwd_builds build/block1_bwd_other.cu
+
+Run from the repository root. The other source (any version of
+``csrc/block1_bwd.cu`` with the same C interface) is compiled with K3's own
+nvcc flags into ``build/``; both libraries then run on the K3 cases of
+``chip_smoke.py::check_block1_bwd`` (the same seeds), plus B=1, 161^2, and
+the tool prints per case and leaf how many of the f32 elements differ in
+their bits, the largest difference, and how many of the other build's
+values are subnormal (a sum that ``red.global.add.f32``, which flushes
+subnormals, would change). The last line is the total of differing
+elements. Without a CUDA card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from em_adapt_torch.ops import block1 as k23
+from em_adapt_torch.utils import build
+
+#: chip_smoke.py's K3 cases (name, batch, size, kind; seed 10 * size + batch),
+#: and B=1, 161^2, where CTAs with one tile and with two run side by side.
+CASES = (("B=6 321x321", 6, 321, "he"), ("B=6 321x321 ties", 6, 321, "ties"),
+         ("B=1 33x33", 1, 33, "he"), ("B=2 41x41 large bias", 2, 41, "large bias"),
+         ("B=2 33x33 ties", 2, 33, "ties"), ("B=1 65x65", 1, 65, "he"),
+         ("B=1 161x161", 1, 161, "he"), ("B=1 161x161 ties", 1, 161, "ties"))
+
+
+def build_other(source: Path) -> tuple[ctypes.CDLL, str]:
+    """The library built from ``source`` with K3's flags, and nvcc's report."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    target = build.BUILD_DIR / f"libblock1_bwd_other-{digest}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA build of {source} failed ({proc.returncode}):\n{proc.stdout}")
+    lib = ctypes.CDLL(str(target))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.em_block1_bwd_launch.argtypes = [p] * 11 + [i] * 3 + [p]
+    lib.em_block1_bwd_launch.restype = i
+    return lib, proc.stdout
+
+
+def run_other(lib: ctypes.CDLL, x, dy, w1, b1, w2, b2):
+    """One launch of the other build, with ``ops.block1.launch_bwd``'s
+    arguments and buffers."""
+    b, _, h, w = x.shape
+    w1c, b1c, w2c, b2c = k23._card_args("block1_bwd", x, w1, b1, w2, b2)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = (torch.empty(64, 3, 3, 3, **f32), torch.empty(64, **f32),
+           torch.empty(64, 64, 3, 3, **f32), torch.empty(64, **f32))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    partials = torch.empty(sms, k23.BWD_PARTIAL_FLOATS, **f32)
+    err = lib.em_block1_bwd_launch(
+        x.data_ptr(), dy.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
+        b2c.data_ptr(), *(t.data_ptr() for t in out), partials.data_ptr(), b, h, w,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the other build's launch failed ({err})")
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("source", type=Path, help="the other version of csrc/block1_bwd.cu")
+    args = parser.parse_args(argv)
+
+    from em_adapt_torch.device import resolve_device
+
+    device = resolve_device(None)  # raises without a card
+    sys.path.insert(0, str(Path.cwd()))
+    import chip_smoke
+
+    lib, log = build_other(args.source)
+    print("other build: " + " ".join(
+        line.strip() for line in log.splitlines() if "registers" in line or "spill" in line))
+    total = 0
+    for name, b, h, kind in CASES:
+        case = chip_smoke.bwd_case(np.random.default_rng(10 * h + b), b, h, kind, device)
+        new = k23.block1_bwd(*case)
+        old = run_other(lib, *case)
+        torch.cuda.synchronize()
+        texts = []
+        for leaf, n, o in zip(("dw1", "db1", "dw2", "db2"), new, old):
+            differ = int((n.view(torch.int32) != o.view(torch.int32)).sum())
+            tiny = float(torch.finfo(torch.float32).tiny)
+            subnormal = int(((o != 0) & (o.abs() < tiny)).sum())
+            total += differ
+            texts.append(f"{leaf}: {differ} of {n.numel()} elements differ (max|diff| "
+                         f"{float((n - o).abs().max()):.3e}; {subnormal} subnormal in the other)")
+        print(f"{name}: " + "; ".join(texts), flush=True)
+    print(f"differing elements in all: {total}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

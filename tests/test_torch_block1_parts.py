@@ -250,3 +250,19 @@ def test_the_tool_raises_without_a_card(capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         parts.main(["--batch", "1"])
     assert capsys.readouterr().out == ""
+
+
+def test_the_build_comparison_raises_without_a_card(capsys):
+    """compare_block1_bwd_builds needs the card before it builds anything;
+    its cases are chip_smoke.py's K3 cases plus B=1, 161^2."""
+    from em_adapt_torch.tools import compare_block1_bwd_builds as compare
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the tool would run for real")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare.main([os.path.join(REPO, "em_adapt_torch", "csrc", "block1_bwd.cu")])
+    assert capsys.readouterr().out == ""
+    smoke = open(os.path.join(REPO, "chip_smoke.py")).read()
+    for name, b, h, kind in compare.CASES:
+        if h != 161:
+            assert f'("{name}", {b}, {h}, "{kind}")' in smoke, name
