@@ -58,6 +58,19 @@ EVAL_IMAGES = 62
 #: read, added and wrote back its CTA's partial row and loaded its own x
 #: and dy: 1.7090 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
 K3_READ_ADD_WRITE_MS = 1.7090
+#: K2's milliseconds per launch at B=6, 321x321 while its four phases ran
+#: one after another in all 16 warps of a CTA: 0.4690 on an NVIDIA H100
+#: 80GB HBM3 at 700 W (PERF.md §6).
+K2_SERIAL_MS = 0.4690
+#: K2's cases (name, batch, size, large bias; seed 10 * size + batch). On a
+#: 132-SM card: B=1 33^2 has 9 tiles of 7 x 8 pooled outputs, so every CTA
+#: owns one; B=1 161^2 exactly 132; B=1 177^2 156, 24 CTAs with two; B=3
+#: 99^2 168, its last tile row one pooled row deep and its last tile column
+#: two wide. Every size but 161 and 321 has ragged last rows and columns.
+K2_CASES = (("B=6 321x321", 6, 321, False), ("B=1 33x33", 1, 33, False),
+            ("B=1 41x41", 1, 41, False), ("B=1 65x65", 1, 65, False),
+            ("B=2 41x41 large bias", 2, 41, True), ("B=1 161x161", 1, 161, False),
+            ("B=1 177x177", 1, 177, False), ("B=3 99x99", 3, 99, False))
 
 
 def log(msg: str) -> None:
@@ -652,21 +665,32 @@ def check_block1(device, timed: bool) -> dict:
     neighbouring bf16 value), the step taken at no less than 2^-12 of the
     largest output (``ops/block1.py::bf16_close`` says why), at least
     99.9% of the elements bit-equal, and its y1 exactly ``conv1_plain``'s
-    (:func:`explain_block1`, which logs where the two part). With ``timed``, its times at the main path's shape
-    (B=6, 321x321) beside the plain version, the cuDNN chain of the conv
-    path and the bound."""
+    (:func:`explain_block1`, which logs where the two part), on every case
+    of :data:`K2_CASES`; its build spills nothing and its shared memory fits
+    a block. With ``timed``, its times at the main path's shape (B=6,
+    321x321) beside the plain version, the cuDNN chain of the conv path, the
+    bound and the time of the K2 whose phases ran one after another."""
     import torch
     import torch.nn.functional as F
 
     from em_adapt_torch.ops import block1 as k2
     from em_adapt_torch.ops.conv import conv2d_same
     from em_adapt_torch.ops.pooling import max_pool_same
+    from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
+    from em_adapt_torch.utils import build
 
-    cases = [("B=6 321x321", 6, 321, False), ("B=1 33x33", 1, 33, False),
-             ("B=1 41x41", 1, 41, False), ("B=1 65x65", 1, 65, False),
-             ("B=2 41x41 large bias", 2, 41, True)]
+    build.build("block1_fwd")
+    report = ptxas_report(build.build_logs[("block1_fwd", ())], "block1_fwd_kernel")
+    smem = k2._lib("block1_fwd").em_block1_fwd_smem_bytes()
+    log(f"K2 build: ptxas {report['registers']} registers, {report['spill_stores']} B spill "
+        f"stores, {report['spill_loads']} B spill loads; {smem} B of dynamic shared memory "
+        f"per CTA of the 232,448 B a block can use")
+    if report["spill_stores"] or report["spill_loads"] or smem > 232448:
+        raise AssertionError(f"K2 spills registers or takes too much shared memory: {report}, "
+                             f"{smem} B")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     max_err, failed = 0.0, []
-    for name, b, h, large in cases:
+    for name, b, h, large in K2_CASES:
         args = block1_case(np.random.default_rng(10 * h + b), b, h, large, device)
         before = k2.launches
         got = k2.block1_fused(*args)
@@ -691,8 +715,10 @@ def check_block1(device, timed: bool) -> dict:
         if not bool(k2.bf16_close(got, want).all()) or equal < 0.999 or y1_apart:
             failed.append(name)
         max_err = max(max_err, err)
-        log(f"K2 {name}: {100 * equal:.4f}% bit-equal to plain, "
-            f"{100 * float((steps <= 1).float().mean()):.4f}% within 1 bf16 step, max "
+        oh = (h + 1) // 2
+        tiles = b * -(-oh // 7) * -(-oh // 8)
+        log(f"K2 {name}: {tiles} tiles on {min(tiles, sms)} CTAs; {100 * equal:.4f}% bit-equal "
+            f"to plain, {100 * float((steps <= 1).float().mean()):.4f}% within 1 bf16 step, max "
             f"{worst} steps, max|kernel-plain| {err:.3e} (max|plain| {scale:.3e}, "
             f"min {float(want.float().min()):.3e}){extra}")
     if failed:
@@ -733,6 +759,9 @@ def check_block1(device, timed: bool) -> dict:
         f"{bound_ms:.6f} ms by {bound_by} ({ops} FLOP at "
         f"{BF16_TENSOR_OPS_PER_S / 1e12:.1f} TFLOP/s, {bytes_moved} B at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {ops / ms / 1e9:.1f} TFLOP/s achieved")
+    log(f"K2 {ms:.4f} ms per launch against {K2_SERIAL_MS:.4f} ms for the K2 whose phases ran "
+        f"one after another (NVIDIA H100 80GB HBM3, 700 W; PERF.md) and {library_ms:.4f} ms for "
+        f"the cuDNN chain in this run: {ms / library_ms:.3f} of the chain's time")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 

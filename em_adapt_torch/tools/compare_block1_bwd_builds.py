@@ -37,19 +37,26 @@ CASES = (("B=6 321x321", 6, 321, "he"), ("B=6 321x321 ties", 6, 321, "ties"),
          ("B=1 161x161", 1, 161, "he"), ("B=1 161x161 ties", 1, 161, "ties"))
 
 
-def build_other(source: Path) -> tuple[ctypes.CDLL, str]:
-    """The library built from ``source`` with K3's flags, and nvcc's report."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    target = build.BUILD_DIR / f"libblock1_bwd_other-{digest}.so"
+def build_other(source: Path, name: str = "block1_bwd",
+                defines: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
+    """The library built from ``source``, another version of
+    ``csrc/<name>.cu``, with the kernels' nvcc flags and ``-D`` for each of
+    ``defines``, its launch function typed as ``ops.block1`` types it; and
+    nvcc's report."""
+    flags = build._flags(tuple(defines))
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    tag = "".join(f"+{d}" for d in defines)
+    target = build.BUILD_DIR / f"lib{name}_other{tag}-{digest}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), str(source)],
+    proc = subprocess.run([build._nvcc(), *flags, "-o", str(target), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"CUDA build of {source} failed ({proc.returncode}):\n{proc.stdout}")
     lib = ctypes.CDLL(str(target))
+    fn, pointers = k23._LAUNCH[name]
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.em_block1_bwd_launch.argtypes = [p] * 11 + [i] * 3 + [p]
-    lib.em_block1_bwd_launch.restype = i
+    getattr(lib, fn).argtypes = [p] * pointers + [i] * 3 + [p]
+    getattr(lib, fn).restype = i
     return lib, proc.stdout
 
 

@@ -150,3 +150,54 @@ def test_auto_picks_the_kernel_where_it_applies():
             assert mode(compute_dtype="float32") == "xla"
             assert mode(width_multiplier=0.5) == "xla"
             assert mode(block1_impl="xla") == "xla"
+
+
+def test_the_k2_build_comparison_raises_without_a_card(capsys):
+    """compare_block1_fwd_builds needs the card before it builds anything."""
+    import os
+
+    from em_adapt_torch.tools import compare_block1_fwd_builds as compare
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the tool would run for real")
+    src = os.path.join(os.path.dirname(__file__), "..", "em_adapt_torch", "csrc", "block1_fwd.cu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare.main([src])
+    assert capsys.readouterr().out == ""
+
+
+def test_the_k2_build_comparison_reads_sources_and_macros():
+    from pathlib import Path
+
+    from em_adapt_torch.tools.compare_block1_fwd_builds import parse_build
+
+    assert parse_build("build/a.cu") == (Path("build/a.cu"), ())
+    assert parse_build("b.cu:K2_SKIP_FETCH,K2_SKIP_CONV1") == (
+        Path("b.cu"), ("K2_SKIP_FETCH", "K2_SKIP_CONV1"))
+
+
+def test_k2_cases_cover_the_pipelines_edges():
+    """chip_smoke.py's K2 cases (which the comparison tool runs too) keep
+    the five first cases and, on a 132-SM card, hold a case where every CTA
+    owns one tile of 7 x 8 pooled outputs, one with exactly 132 tiles, one
+    where some CTAs own two, and ragged last tile rows and columns."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cases = {(b, h, large) for _, b, h, large in chip_smoke.K2_CASES}
+    assert {(6, 321, False), (1, 33, False), (1, 41, False), (1, 65, False),
+            (2, 41, True)} <= cases
+    sms = 132
+    tiles = {}
+    for b, h, _ in cases:
+        oh = (h + 1) // 2
+        tiles[(b, h)] = b * -(-oh // 7) * -(-oh // 8)
+    assert tiles[(1, 33)] == 9 and tiles[(1, 161)] == sms
+    assert any(sms < n < 2 * sms for n in tiles.values())
+    assert tiles[(6, 321)] == 2898  # 21 or 22 tiles a CTA
+    oh = (99 + 1) // 2  # B=3, 99^2: the last tile row one pooled row deep, the last column two
+    assert (3, 99) in tiles and oh % 7 == 1 and oh % 8 == 2

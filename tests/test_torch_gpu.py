@@ -108,7 +108,8 @@ def _block1_case(g, b, h, large_bias, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,large_bias", [(1, 33, False), (1, 41, False), (1, 65, False),
-                                            (6, 321, False), (2, 41, True)])
+                                            (6, 321, False), (2, 41, True), (1, 161, False),
+                                            (1, 177, False), (3, 99, False)])
 def test_block1_kernel_matches_plain(cuda_device, b, h, large_bias):
     """K2 against block1_plain on the same card: within one bf16 step per
     element (an f32 sum in another order may round to the neighbouring
@@ -116,7 +117,10 @@ def test_block1_kernel_matches_plain(cuda_device, b, h, large_bias):
     output (see ops/block1.py::bf16_close); bit-equal almost everywhere;
     with w2 the identity at the centre tap and b2 = 0, the pool of y1
     bit-equal to that of conv1_plain. Odd edge tiles and a large positive
-    bias included."""
+    bias included. The pipeline's edges on a 132-SM card: at 33^2 and 41^2
+    every CTA owns one tile, at 161^2 exactly one each of 132, at 177^2 24
+    of 132 CTAs own two (156 tiles), and at B=3, 99^2 (168 tiles) the last
+    tile row is one pooled row deep and the last tile column two wide."""
     from em_adapt_torch.device import set_precision
     from em_adapt_torch.ops import block1 as k2
     from em_adapt_torch.ops.pooling import max_pool_same
@@ -137,6 +141,33 @@ def test_block1_kernel_matches_plain(cuda_device, b, h, large_bias):
     eye[range(64), range(64), 1, 1] = 1
     pooled_y1 = k2.block1_fused(x, w1, b1, eye, torch.zeros_like(b2))
     assert torch.equal(pooled_y1, max_pool_same(k2.conv1_plain(x, w1, b1), 3, 2))
+
+
+@pytest.mark.gpu
+def test_block1_kernel_builds_without_spills(cuda_device):
+    """K2's build spills no register and its shared memory fits a block."""
+    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
+    from em_adapt_torch.utils import build
+
+    build.build("block1_fwd")
+    report = ptxas_report(build.build_logs[("block1_fwd", ())], "block1_fwd_kernel")
+    assert report["spill_stores"] == report["spill_loads"] == 0
+    assert report["registers"] <= 128
+    assert 0 < k2._lib("block1_fwd").em_block1_fwd_smem_bytes() <= 232448
+
+
+@pytest.mark.gpu
+def test_block1_kernel_is_reproducible(cuda_device):
+    """Each output element is one CTA's, summed in a fixed order whatever
+    the timing of its producer and consumer warps: ten runs at B=6, 321^2
+    give the same bits."""
+    from em_adapt_torch.ops import block1 as k2
+
+    args = _block1_case(np.random.default_rng(3), 6, 321, False, cuda_device)
+    first = k2.block1_fused(*args)
+    for _ in range(9):
+        assert torch.equal(k2.block1_fused(*args), first)
 
 
 @pytest.mark.gpu
