@@ -122,6 +122,58 @@ def realistic_batch(rng: np.random.Generator, b: int, hw: int = 41, c: int = 21)
     return scores, label, orders
 
 
+#: K1's edge cases (``k1_edge_case``) and their score-map sizes: HW 49 and
+#: 512 run the one-pixel-a-thread instance, 600 and 1024 the two-pixel
+#: one, 1681 (41x41, the training path's) the four-pixel one.
+K1_EDGE_CASES = ("ties", "zero_diffs", "subnormal", "inf", "k0", "k_last", "void_rows")
+K1_EDGE_SIZES = ((7, 7), (16, 32), (20, 30), (32, 32), (41, 41))
+#: The E-step's keywords on the training path (the reference recipe).
+K1_RECIPE = dict(bg_p=0.4, fg_p=0.2, num_iter=5, suppress_others=True, margin_others=1e-5)
+
+
+def k1_edge_case(name: str, h: int, w: int):
+    """NHWC scores, labels, orders and E-step keywords of one K1 edge case,
+    B=2, C=5, two rounds of visits, made from a seed:
+    ``ties`` integer scores 0..3 (many diffs equal the k-th); ``zero_diffs``
+    background the max everywhere (every background diff 0); ``subnormal``
+    scores below 1e-38; ``inf`` a power of two of pixels where class 1
+    scores 2^106 and class 2 -FLT_MAX, so class 2's diff overflows to +inf
+    there (their sum, a power of two times 2^106, swallows every other
+    score's and stays exact times 1/HW, so the final shift is exactly 0 in
+    any summation order, with or without a fused multiply-add);
+    ``k0`` and ``k_last`` ranks 0 and HW-1; ``void_rows`` void label rows
+    and a second image with no tag at all."""
+    hw = h * w
+    rng = np.random.default_rng([K1_EDGE_CASES.index(name), hw])
+    b, c = 2, 5
+    scores = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    label = rng.integers(0, c, size=(b, h, w)).astype(np.float32)
+    label.reshape(b, -1)[:, :c] = np.arange(c)  # every class present
+    kw = dict(bg_p=0.4, fg_p=0.2, num_iter=2, suppress_others=True, margin_others=1e-5)
+    if name == "ties":
+        scores = rng.integers(0, 4, size=scores.shape).astype(np.float32)
+    elif name == "zero_diffs":
+        scores[..., 0] += 10.0
+    elif name == "subnormal":
+        scores *= np.float32(1e-39)
+    elif name == "inf":
+        flat = scores.reshape(b, hw, c)
+        big = rng.choice(hw, size=1 << max(1, (hw // 20).bit_length() - 1), replace=False)
+        flat[:, big, 1] = np.float32(2.0 ** 106)
+        flat[:, big, 2] = -np.finfo(np.float32).max
+    elif name == "k0":
+        kw.update(bg_p=0.0, fg_p=0.0)
+    elif name == "k_last":
+        kw.update(bg_p=1 - 0.5 / hw, fg_p=1 - 0.5 / hw)
+    elif name == "void_rows":
+        label[0, : max(1, h // 3)] = 255.0
+        label[1] = 255.0
+    else:
+        raise ValueError(f"unknown K1 edge case {name!r}")
+    orders = np.stack([rng.permutation(np.arange(1, c)) for _ in range(kw["num_iter"])])
+    return scores, label, orders.astype(np.int32), kw
+
+
 def partition_thresholds(scores, label, orders, *, bg_p, fg_p, num_iter, suppress_others,
                          margin_others):
     """The per-visit bias of the numpy oracle's loop (np.partition),
@@ -169,8 +221,43 @@ def k1_inputs(scores, label, orders, device, *, bg_p, fg_p, num_iter, suppress_o
     return args, kw
 
 
+def present_visits(label, orders) -> list[int]:
+    """Per image, the class visits K1 runs (those of a tagged class)."""
+    b, c = label.shape[0], orders.shape[1] + 1
+    tags = np.stack([np.isin(np.arange(c), label[i].astype(np.uint8)) for i in range(b)])
+    visits = np.concatenate([np.zeros((orders.shape[0], 1), np.int64), orders], 1).reshape(-1)
+    return tags[:, visits].sum(1).tolist()
+
+
+def k1_cases():
+    """(name, NHWC scores, labels, orders, E-step keywords, golden output
+    or None) of every case K1 is held on: ``realistic_batch`` at B=6 and
+    B=30, one present class, the five goldens and the edge cases."""
+    rng = np.random.default_rng(1234)
+    cases = [(f"random_b{b}", *realistic_batch(rng, b), dict(K1_RECIPE), None) for b in (6, 30)]
+    single = rng.normal(size=(1, 8, 8, 3)).astype(np.float32)
+    cases.append(("single_class", single, np.full((1, 8, 8), 2.0, np.float32),
+                  np.array([[2, 1]], np.int32),
+                  dict(K1_RECIPE, num_iter=1, suppress_others=False), None))
+    fixtures = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures", "estep_*.npz")))
+    if len(fixtures) != 5:
+        raise AssertionError(f"expected 5 estep_*.npz goldens, found {len(fixtures)}")
+    for path in fixtures:
+        z = np.load(path)
+        kw = dict(bg_p=float(z["bg_p"]), fg_p=float(z["fg_p"]), num_iter=int(z["num_iter"]),
+                  suppress_others=bool(z["suppress"]), margin_others=float(z["margin"]))
+        cases.append((os.path.basename(path), z["scores"].astype(np.float32),
+                      z["label"].astype(np.float32), z["orders"].astype(np.int32), kw, z["out"]))
+    for name in K1_EDGE_CASES:
+        for h, w in K1_EDGE_SIZES:
+            cases.append((f"edge {name} {h}x{w}", *k1_edge_case(name, h, w), None))
+    return cases
+
+
 def check_estep(device) -> dict:
-    """K1 against its plain version (and the goldens) on the card; times."""
+    """K1 against its plain version (and the goldens, and np.partition) on
+    the card, on ``k1_cases``; times on ``realistic_batch``, with its
+    fixed cost and the cost of one present visit."""
     import torch
 
     from em_adapt_torch.ops import estep_kernel as k1
@@ -191,32 +278,13 @@ def check_estep(device) -> dict:
 
         return nhwc(out_k), th_k.cpu().numpy(), nhwc(out_p), th_p.cpu().numpy()
 
-    default_kw = dict(bg_p=0.4, fg_p=0.2, num_iter=5, suppress_others=True, margin_others=1e-5)
-    rng = np.random.default_rng(1234)
-    cases = []
-    for b in (6, 30):
-        cases.append((f"random_b{b}", *realistic_batch(rng, b), dict(default_kw), None))
-    single = rng.normal(size=(1, 8, 8, 3)).astype(np.float32)
-    cases.append(("single_class", single, np.full((1, 8, 8), 2.0, np.float32),
-                  np.array([[2, 1]], np.int32),
-                  dict(default_kw, num_iter=1, suppress_others=False), None))
-    fixtures = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures", "estep_*.npz")))
-    if len(fixtures) != 5:
-        raise AssertionError(f"expected 5 estep_*.npz goldens, found {len(fixtures)}")
-    for path in fixtures:
-        z = np.load(path)
-        kw = dict(bg_p=float(z["bg_p"]), fg_p=float(z["fg_p"]), num_iter=int(z["num_iter"]),
-                  suppress_others=bool(z["suppress"]), margin_others=float(z["margin"]))
-        cases.append((os.path.basename(path), z["scores"].astype(np.float32),
-                      z["label"].astype(np.float32), z["orders"].astype(np.int32), kw, z["out"]))
-
     max_err = 0.0
-    for name, scores, label, orders, kw, golden in cases:
+    for name, scores, label, orders, kw, golden in k1_cases():
         out_k, th_k, out_p, th_p = both(scores, label, orders, kw)
         if not np.array_equal(out_k.argmax(3), out_p.argmax(3)):
             raise AssertionError(f"{name}: kernel argmax differs from the plain version")
         err = float(np.abs(out_k - out_p).max())
-        if err > 2e-5:
+        if not err <= 2e-5:
             raise AssertionError(f"{name}: kernel scores differ from plain by {err}")
         if not np.array_equal(th_k.view(np.int32), th_p.view(np.int32)):
             raise AssertionError(f"{name}: thresholds not bit-equal to the plain version")
@@ -235,10 +303,13 @@ def check_estep(device) -> dict:
         log(f"K1 {name} {tuple(scores.shape)}: argmax identical, thresholds bit-equal "
             f"(plain and np.partition), max|kernel-plain| {err:.3e}{extra}")
 
+    rounds = k1.search_rounds(k1._lib().em_estep_digit_bits())
+    log(f"K1 search: {k1.DIGIT_BITS} threshold bits a block round, {rounds} dependent block "
+        f"rounds a present class visit (the bisection: 31)")
     timing = {}
     for b in (6, 30):
         scores, label, orders = realistic_batch(np.random.default_rng(b), b)
-        args, kw = k1_inputs(scores, label, orders, device, **default_kw)
+        args, kw = k1_inputs(scores, label, orders, device, **K1_RECIPE)
         def run():
             return k1.estep_kernel(*args, **kw)
 
@@ -247,23 +318,50 @@ def check_estep(device) -> dict:
         prof_ms = profiled_kernel_ms(run, "estep_kernel", launches=50)
         plain_ms = cuda_ms(lambda: k1.estep_plain(*args, **kw), reps=5, warmup=1)
         hw = 41 * 41
-        tags = np.stack([np.isin(np.arange(21), label[i].astype(np.uint8)) for i in range(b)])
-        visits = np.concatenate([np.zeros((5, 1), np.int64), orders], 1).reshape(-1)
-        present_visits = int(tags[:, visits].sum())
-        bytes_moved = 4 * (2 * b * 21 * hw + b * hw + visits.size + 1 + b * visits.size)
-        ops = 31 * hw * present_visits
+        present = present_visits(label, orders)
+        visits = 5 * 21
+        bytes_moved = 4 * (2 * b * 21 * hw + b * hw + visits + 1 + b * visits)
+        ops = 31 * hw * sum(present)
         bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / SIMT_OPS_PER_S) * 1e3
         bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / SIMT_OPS_PER_S else "operations"
+        fixed_ms, visit_us = k1_split(args, kw, prof_ms, present)
         timing[b] = dict(ms=ms, prof_ms=prof_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, present=tags[:, visits].sum(1).tolist())
-        prof_text = f"{prof_ms:.4f} ms" if prof_ms is not None else "not measured"
+                         bound_by=bound_by, present=present, fixed_ms=fixed_ms,
+                         visit_us=visit_us)
         log(f"K1 time B={b}: kernel {ms:.4f} ms per launch (100 back-to-back launches "
             f"between CUDA events, median of 20), {call_ms:.4f} ms per single call "
-            f"(events around each call, median of 50), profiler device time {prof_text} "
+            f"(events around each call, median of 50), profiler device time "
+            f"{measured(prof_ms, 4, 'ms')} "
             f"(mean of 50); plain {plain_ms:.2f} ms (median of 5); bound {bound_ms:.6f} ms "
-            f"by {bound_by} ({bytes_moved} B, {ops} compares over {present_visits} "
-            f"present visits, most in one image {int(tags[:, visits].sum(1).max())})")
-    return dict(max_abs_err=max_err, timing=timing)
+            f"by {bound_by} ({bytes_moved} B, {ops} compares over {sum(present)} "
+            f"present visits, most in one image {max(present)})")
+        log(f"K1 cost B={b}: fixed {measured(fixed_ms, 4, 'ms')} (profiler device time, "
+            f"all-void labels, no visit runs), {measured(visit_us, 3, 'us')} a present visit "
+            f"((profiler time - fixed) / {max(present)} visits of the busiest image), "
+            f"{rounds} block rounds a visit")
+    return dict(max_abs_err=max_err, timing=timing, rounds=rounds)
+
+
+def k1_split(args, kw, prof_ms: float | None, present: list[int]):
+    """K1's fixed cost and the cost of one present visit on ``args``: the
+    profiler's device time per launch with every label void (the loads,
+    suppression, sums and stores, and no class visit; back-to-back events
+    would time the host's enqueue of so short a launch), and
+    (``prof_ms`` - fixed) / the busiest image's present visits, in µs.
+    None where the profiler records no device time."""
+    import torch
+
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    void = (args[0], torch.full_like(args[1], 255), *args[2:])
+    fixed = profiled_kernel_ms(lambda: k1.estep_kernel(*void, **kw), "estep_kernel", launches=50)
+    if fixed is None or prof_ms is None:
+        return fixed, None
+    return fixed, (prof_ms - fixed) / max(present) * 1e3
+
+
+def measured(value: float | None, digits: int, unit: str) -> str:
+    return "not measured" if value is None else f"{value:.{digits}f} {unit}"
 
 
 def check_model_small_input(device) -> None:
@@ -461,8 +559,8 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
 def time_k1_on(args, kw) -> dict:
     """K1's time on the arguments of one training step's E-step call (the
     scores and tags of that step), as ``check_estep`` times it on
-    ``realistic_batch``, with the present class visits per image that set
-    its length (31 block-wide counts each; absent classes are skipped)."""
+    ``realistic_batch``, with its fixed cost and the present class visits
+    per image that set its length (absent classes are skipped)."""
     import torch
 
     from em_adapt_torch.ops import estep_kernel as k1
@@ -477,7 +575,9 @@ def time_k1_on(args, kw) -> dict:
 
     ms = cuda_ms_per_launch(run, launches=100, reps=20, warmup=5)
     prof_ms = profiled_kernel_ms(run, "estep_kernel", launches=50)
-    return dict(ms=ms, prof_ms=prof_ms, present=present, shape=tuple(scores.shape))
+    fixed_ms, visit_us = k1_split(args, kw, prof_ms, present)
+    return dict(ms=ms, prof_ms=prof_ms, present=present, shape=tuple(scores.shape),
+                fixed_ms=fixed_ms, visit_us=visit_us)
 
 
 def grads_bf16(device) -> dict:
@@ -1205,11 +1305,12 @@ def main(argv=None) -> int:
     in_step, t6 = bf16_result["k1_in_step"], k1_result["timing"][6]
     log(f"K1 on one bf16 training step's own E-step inputs {in_step['shape']}: "
         f"{in_step['ms']:.4f} ms per launch (100 back-to-back launches between CUDA events, "
-        f"median of 20), profiler device time "
-        f"{in_step['prof_ms'] if in_step['prof_ms'] is not None else 'not measured'} ms; present "
-        f"class visits per image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, "
-        f"profiler {t6['prof_ms'] if t6['prof_ms'] is not None else 'not measured'} ms, present "
-        f"visits per image {t6['present']}")
+        f"median of 20), profiler device time {measured(in_step['prof_ms'], 4, 'ms')}, fixed "
+        f"cost {measured(in_step['fixed_ms'], 4, 'ms')}, {measured(in_step['visit_us'], 3, 'us')} "
+        f"a present visit ({k1_result['rounds']} block rounds each); present class visits per "
+        f"image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, profiler "
+        f"{measured(t6['prof_ms'], 4, 'ms')}, fixed {measured(t6['fixed_ms'], 4, 'ms')}, "
+        f"{measured(t6['visit_us'], 3, 'us')} a visit, present visits per image {t6['present']}")
     grads_bf16(device)
     time_block1_train(device)
     eval_result = evaluate(device)

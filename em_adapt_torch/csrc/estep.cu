@@ -10,9 +10,9 @@
 //      (reference estep.py:46-55, quirk included);
 //   3. L = num_iter * C class visits in the given order; visit t of class j
 //      finds the k-th smallest `rowmax - f_j` (k = k_bg for j == 0, else
-//      k_fg) by a 31-step bisection on the float bits and adds it to
-//      channel j. diff >= 0, so its bit pattern orders like an integer and
-//      the result is exactly np.partition(diff, k)[k];
+//      k_fg) by a search on the float bits and adds it to channel j.
+//      diff >= 0, so its bit pattern orders like an integer and the result
+//      is exactly np.partition(diff, k)[k];
 //   4. a per-image shift keeps the mean of the per-pixel max.
 //
 // Layout: scores and out are [B, C, HW] (the model's NCHW logits as they
@@ -25,16 +25,34 @@
 // Thread t owns pixels t, t+512, ... of every channel, so after the first
 // barrier no thread reads another's pixel: the per-pixel max and the
 // visit's diff bits stay in registers, and the only barriers are the
-// block-wide counts of the bisection. Each probe counts `dbits <= probe`
-// per thread, reduces across the warp with __reduce_add_sync and across
-// the 16 warps through shared memory; the count buffer alternates between
-// two halves, so one barrier per probe suffices. A visit of an absent
-// class adds 0 and is skipped without any barrier.
+// block-wide counts of the search. A visit of an absent class adds 0 and
+// is skipped without any barrier.
 //
-// What bounds it: the chain of L * 31 dependent block reductions, i.e.
-// barrier latency. Its byte bound (scores in, scores out) and operation
-// bound (L * 31 * HW compares per image) are both below a microsecond at
-// B = 6; with only B of 132 SMs busy the kernel is latency-bound.
+// The search: the threshold `cand` is the least 31-bit pattern with at
+// least k+1 diff patterns at or below it. Its bits are fixed from the top
+// a digit of R = K1_DIGIT_BITS bits at a time (the first digit takes the
+// 31 % R bits left over, or R): a round at shift s tests the 2^R - 1
+// probes cand | m << s | (1 << s) - 1, m = 0 .. 2^R - 2, and the digit is
+// the number of probes with fewer than k+1 patterns at or below them.
+// That is the bisection's predicate on the same bits (R = 1 is the
+// bisection), so the threshold is the same, in ceil(31 / R) rounds.
+// Each pixel's pattern v is at or below probe m iff e <= m, where
+// e = min(sat(v >> s - cand >> s), 2^R) (e = 2^R: above every probe).
+// A thread counts its pixels as a thermometer code: byte m of a packed
+// word counts the pixels with e <= m, computed for four bytes at once as
+// bit 5 of (0x20 + m) - e (no borrow between bytes for e <= 32). A warp's
+// counts (at most 128) still fit a byte, so the warp sums 2^R / 4 words
+// with __reduce_add_sync; lane 0 stores them, one barrier, and lane m of
+// every warp sums byte m over the 16 warps (without a branch). The buffer
+// alternates between two halves, so one barrier per round suffices: a
+// warp can write round t+1's counts while another still reads round t's,
+// but not round t+2's before every thread has passed round t+1's barrier.
+//
+// What bounds it: the chain of (present visits) * ceil(31 / R) dependent
+// block rounds, i.e. barrier latency plus each round's own instructions.
+// Its byte bound (scores in, scores out) and operation bound are both
+// below a microsecond at B = 6; with only B of 132 SMs busy the kernel is
+// latency-bound.
 //
 // No fast-math: flush-to-zero would alter subnormal diffs and with them
 // the threshold bits.
@@ -44,20 +62,65 @@
 #include <atomic>
 #include <cstdint>
 
+#ifndef K1_DIGIT_BITS
+#define K1_DIGIT_BITS 4
+#endif
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
-// Sum of one int per thread; every thread gets the total. `buf` holds
-// kWarps ints; callers alternate two buffers so that no barrier is needed
-// between one reduction's reads and the next one's writes.
-__device__ __forceinline__ int block_count(int v, int* buf) {
+constexpr int kDigitBits = K1_DIGIT_BITS;  // R
+static_assert(kDigitBits >= 1 && kDigitBits <= 5, "a round's 2^R - 1 probes need <= 31 lanes");
+constexpr int kRounds = (31 + kDigitBits - 1) / kDigitBits;
+constexpr int kTopBits = 31 - (kRounds - 1) * kDigitBits;  // the first, shorter digit
+constexpr int kWords = kDigitBits <= 2 ? 1 : 1 << (kDigitBits - 2);  // 4 one-byte counts each
+constexpr unsigned kOnes = 0x01010101u;
+
+// One round of the search: the digit at shift `s` (a round of `bits`
+// bits) of the least pattern with at least k1 of the block's patterns at
+// or below it, given the digits above (`cand`, zero at and below s).
+// `buf` holds kWarps * kWords words; callers alternate two buffers.
+template <int PPT>
+__device__ __forceinline__ unsigned search_digit(const unsigned (&dbits)[PPT], unsigned cand,
+                                                 int s, int bits, int k1, unsigned* buf) {
+  static_assert(PPT <= 4, "a thread's byte counts (0x20 each) must stay below 0x100");
   const int lane = threadIdx.x & 31;
-  v = __reduce_add_sync(0xffffffffu, v);
-  if (lane == 0) buf[threadIdx.x >> 5] = v;
+  const unsigned c = cand >> s;
+  unsigned acc[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) acc[w] = 0;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const unsigned v = dbits[i] >> s;
+    const unsigned d = v > c ? v - c : 0u;
+    const unsigned e = d < (1u << kDigitBits) ? d : (1u << kDigitBits);
+    const unsigned spread = e * kOnes;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      // byte b: 0x20 + (4w + b) - e, bit 5 set iff 4w + b >= e
+      acc[w] += (0x20202020u + 4u * w * kOnes + 0x03020100u - spread) & 0x20202020u;
+    }
+  }
+  unsigned* mine = buf + (threadIdx.x >> 5) * kWords;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const unsigned sum = __reduce_add_sync(0xffffffffu, acc[w] >> 5);
+    if (lane == 0) mine[w] = sum;
+  }
   __syncthreads();
-  return __reduce_add_sync(0xffffffffu, lane < kWarps ? buf[lane] : 0);
+  // Lane m sums byte m over the warps. Every lane loads (lanes past the
+  // bytes wrap onto one): a guard would cost a branch and its
+  // reconvergence each round; the ballot leaves out lanes >= probes.
+  const unsigned char* bytes =
+      reinterpret_cast<const unsigned char*>(buf) + (lane & (4 * kWords - 1));
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += bytes[w * kWords * 4];
+  // Totals never fall as m grows: the digit is the count of probes below k1.
+  const int probes = (1 << bits) - 1;
+  return __popc(__ballot_sync(0xffffffffu, lane < probes && total < k1));
 }
 
 // Sum of one float per thread in a fixed order; every thread gets the
@@ -81,8 +144,8 @@ estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
   extern __shared__ float smem[];
   float* f = smem;                                     // [C * HW]
   int* tags = reinterpret_cast<int*>(f + C * HW);      // [C]
-  int* counts = tags + C;                              // [2 * kWarps]
-  float* sums = reinterpret_cast<float*>(counts + 2 * kWarps);  // [kWarps]
+  unsigned* counts = reinterpret_cast<unsigned*>(tags + C);       // [2][kWarps][kWords]
+  float* sums = reinterpret_cast<float*>(counts + 2 * kWarps * kWords);  // [kWarps]
 
   const int tid = threadIdx.x;
   const size_t img = blockIdx.x;
@@ -148,14 +211,12 @@ estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
     }
     const int k1 = (j == 0 ? k_bg : k_fg) + 1;
     unsigned cand = 0;
-    for (int bit = 30; bit >= 0; --bit) {
-      const unsigned probe = cand | ((1u << bit) - 1u);
-      int n = 0;
 #pragma unroll
-      for (int i = 0; i < PPT; ++i) n += dbits[i] <= probe;
-      const int total = block_count(n, counts + phase * kWarps);
+    for (int r = 0; r < kRounds; ++r) {
+      const int bits = r == 0 ? kTopBits : kDigitBits;
+      const int s = 31 - kTopBits - r * kDigitBits;
+      cand |= search_digit<PPT>(dbits, cand, s, bits, k1, counts + phase * kWarps * kWords) << s;
       phase ^= 1;
-      if (total < k1) cand |= 1u << bit;
     }
     const float th = __uint_as_float(cand);
     if (tid == 0) thresholds[img * L + t] = th;
@@ -225,9 +286,12 @@ extern "C" {
 
 // Dynamic shared memory one image needs, in bytes.
 size_t em_estep_smem_bytes(int C, int HW) {
-  return sizeof(float) * static_cast<size_t>(C) * HW + sizeof(int) * (C + 2 * kWarps) +
-         sizeof(float) * kWarps;
+  return sizeof(float) * static_cast<size_t>(C) * HW + sizeof(int) * C +
+         sizeof(unsigned) * 2 * kWarps * kWords + sizeof(float) * kWarps;
 }
+
+// R, the bits of the threshold each block round fixes (K1_DIGIT_BITS).
+int em_estep_digit_bits() { return kDigitBits; }
 
 int em_estep_max_pixels() { return 4 * kThreads; }
 

@@ -4,8 +4,10 @@
 ``[B, C, HW]`` (the model's NCHW logits, reshaped without a copy). On a
 CUDA tensor it launches the hand-written kernel of ``csrc/estep.cu``,
 which replaces the TPU kernel ``em_adapt_tpu/ops/estep_pallas.py::_kernel``;
-on a CPU tensor it runs :func:`estep_plain`, the same bit bisection in
-plain PyTorch. There is no fallback from one to the other.
+on a CPU tensor it runs :func:`estep_plain`, the same search on the
+float bits in plain PyTorch: each round fixes a digit of
+:data:`DIGIT_BITS` bits of every visit's threshold, as the kernel's
+block rounds do. There is no fallback from one to the other.
 
 Inputs computed outside the kernel, as the JAX side computes them
 (estep_pallas.py:218-239): ``k_bg``/``k_fg`` = ``int(hw * p)``, the visit
@@ -26,22 +28,65 @@ launches = 0
 #: Dynamic shared memory a block may use on Hopper (227 KB opt-in).
 MAX_SMEM_BYTES = 232448
 
+#: Bits of a threshold that one block round of the kernel fixes: its
+#: ``K1_DIGIT_BITS``, checked against the library when it is loaded. A
+#: present class visit takes ``search_rounds(DIGIT_BITS)`` rounds.
+DIGIT_BITS = 4
+
+
+def type_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Types the C interface that every version of ``csrc/estep.cu`` has."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.em_estep_launch.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
+    lib.em_estep_launch.restype = i
+    lib.em_estep_smem_bytes.argtypes = [i, i]
+    lib.em_estep_smem_bytes.restype = ctypes.c_size_t
+    lib.em_estep_max_pixels.restype = i
+    lib.em_cuda_error_string.argtypes = [i]
+    lib.em_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
 
 def _lib() -> ctypes.CDLL:
     from em_adapt_torch.utils.build import load
 
     lib = load("estep")
     if not getattr(lib, "_em_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.em_estep_launch.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
-        lib.em_estep_launch.restype = i
-        lib.em_estep_smem_bytes.argtypes = [i, i]
-        lib.em_estep_smem_bytes.restype = ctypes.c_size_t
-        lib.em_estep_max_pixels.restype = i
-        lib.em_cuda_error_string.argtypes = [i]
-        lib.em_cuda_error_string.restype = ctypes.c_char_p
+        type_library(lib)
+        lib.em_estep_digit_bits.restype = ctypes.c_int
+        if lib.em_estep_digit_bits() != DIGIT_BITS:
+            raise RuntimeError(f"csrc/estep.cu fixes {lib.em_estep_digit_bits()} threshold bits "
+                               f"a round, ops/estep_kernel.py {DIGIT_BITS}")
         lib._em_typed = True
     return lib
+
+
+def search_rounds(digit_bits: int) -> int:
+    """Dependent block rounds of one present class visit: the 31 bits of a
+    non-negative float, ``digit_bits`` at a time."""
+    return -(-31 // digit_bits)
+
+
+def search_thresholds(dbits: torch.Tensor, k1: int, digit_bits: int) -> torch.Tensor:
+    """Per row of ``dbits`` [B,HW] (diff bit patterns, int32), the least
+    31-bit pattern with at least ``k1`` patterns at or below it: the
+    (k1-1)-th smallest, found a digit at a time from the top as the kernel
+    finds it. A round at shift s tests the probes cand | m << s |
+    (1 << s) - 1 for m < 2^bits - 1; the digit is the number of probes
+    with fewer than k1 patterns at or below them. The first round takes
+    the bits left over (31 % digit_bits, or digit_bits); ``digit_bits=1``
+    is the bisection. Returns [B] int32."""
+    cand = torch.zeros(dbits.shape[0], 1, dtype=torch.int32, device=dbits.device)
+    rounds = search_rounds(digit_bits)
+    shift = 31
+    for r in range(rounds):
+        bits = 31 - (rounds - 1) * digit_bits if r == 0 else digit_bits
+        shift -= bits
+        m = torch.arange((1 << bits) - 1, dtype=torch.int32, device=dbits.device)
+        probes = cand | (m << shift)[None, :] | ((1 << shift) - 1)  # [B, 2^bits - 1]
+        count = (dbits[:, None, :] <= probes[:, :, None]).sum(2)
+        cand = cand | ((count < k1).sum(1, keepdim=True).to(torch.int32) << shift)
+    return cand[:, 0]
 
 
 def estep_plain(
@@ -54,9 +99,12 @@ def estep_plain(
     k_fg: int,
     suppress: bool,
     margin: float,
+    digit_bits: int = DIGIT_BITS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in plain PyTorch; same arguments and results
-    as :func:`estep_kernel`: (biased scores [B,C,HW], thresholds [B,L])."""
+    as :func:`estep_kernel`: (biased scores [B,C,HW], thresholds [B,L]).
+    ``digit_bits`` is the search's round width (:func:`search_thresholds`);
+    every width gives the same bits."""
     b, c, hw = scores.shape
     f = scores.clone()
     classes = torch.arange(c, device=scores.device)
@@ -73,11 +121,7 @@ def estep_plain(
     for t, j in enumerate(schedule):
         dbits = (rowmax - f[:, j]).view(torch.int32)
         k1 = (k_bg if j == 0 else k_fg) + 1
-        cand = torch.zeros(b, 1, dtype=torch.int32, device=scores.device)
-        for bit in range(30, -1, -1):
-            count = (dbits <= (cand | ((1 << bit) - 1))).sum(1, keepdim=True)
-            cand = torch.where(count >= k1, cand, cand | (1 << bit))
-        th = cand[:, 0].view(torch.float32) * tags[:, j]
+        th = search_thresholds(dbits, k1, digit_bits).view(torch.float32) * tags[:, j]
         thresholds[:, t] = th
         f[:, j] += th[:, None]
         rowmax = torch.maximum(rowmax, f[:, j])
@@ -136,18 +180,30 @@ def estep_kernel(
             f"{max_pixels} pixels); a multi-CTA E-step for large score maps "
             "is ROADMAP.md Queue 1 item 5"
         )
+    out, thresholds = launch(lib, scores, labels, visit, gmax, k_bg=k_bg, k_fg=k_fg,
+                             suppress=suppress, margin=margin)
+    global launches
+    launches += 1
+    return out, thresholds
+
+
+def launch(lib: ctypes.CDLL, scores, labels, visit, gmax, *, k_bg: int, k_fg: int,
+           suppress: bool, margin: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``lib``'s ``em_estep_launch`` (a library typed by
+    :func:`type_library`) on inputs that :func:`estep_kernel` accepts;
+    raises when the launch fails. Not counted in :data:`launches`."""
+    b, c, hw = scores.shape
+    dev = scores.device
     out = torch.empty_like(scores)
-    thresholds = torch.empty(b, length, dtype=torch.float32, device=dev)
+    thresholds = torch.empty(b, visit.numel(), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.em_estep_launch(
             scores.data_ptr(), labels.data_ptr(), visit.data_ptr(), gmax.data_ptr(),
-            out.data_ptr(), thresholds.data_ptr(), b, c, hw, length, k_bg, k_fg,
+            out.data_ptr(), thresholds.data_ptr(), b, c, hw, visit.numel(), k_bg, k_fg,
             int(suppress), margin, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"estep kernel launch failed: {lib.em_cuda_error_string(err).decode()} ({err})"
         )
-    global launches
-    launches += 1
     return out, thresholds

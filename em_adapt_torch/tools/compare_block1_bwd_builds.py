@@ -41,8 +41,8 @@ def build_other(source: Path, name: str = "block1_bwd",
                 defines: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
     """The library built from ``source``, another version of
     ``csrc/<name>.cu``, with the kernels' nvcc flags and ``-D`` for each of
-    ``defines``, its launch function typed as ``ops.block1`` types it; and
-    nvcc's report."""
+    ``defines``, its launch function typed as ``ops.block1`` (or, for
+    ``estep``, ``ops.estep_kernel``) types it; and nvcc's report."""
     flags = build._flags(tuple(defines))
     digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     tag = "".join(f"+{d}" for d in defines)
@@ -53,6 +53,10 @@ def build_other(source: Path, name: str = "block1_bwd",
     if proc.returncode != 0:
         raise RuntimeError(f"CUDA build of {source} failed ({proc.returncode}):\n{proc.stdout}")
     lib = ctypes.CDLL(str(target))
+    if name == "estep":
+        from em_adapt_torch.ops.estep_kernel import type_library
+
+        return type_library(lib), proc.stdout
     fn, pointers = k23._LAUNCH[name]
     p, i = ctypes.c_void_p, ctypes.c_int
     getattr(lib, fn).argtypes = [p] * pointers + [i] * 3 + [p]

@@ -3,6 +3,8 @@ version) against the reference goldens, the numpy oracle and the JAX
 package's Pallas kernel in interpret mode. The CUDA kernel itself is
 tested on a card by tests/test_torch_gpu.py."""
 
+import functools
+import importlib.util
 import os
 
 import numpy as np
@@ -29,6 +31,18 @@ from em_adapt_tpu.ops.estep_pallas import estep_pallas  # noqa: E402
 torch.set_num_threads(2)
 
 IMPLS = ["sort", "bisect"]
+
+
+def _load_chip_smoke():
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: chip_smoke.py's K1 edge cases, which the card runs too.
+SMOKE = _load_chip_smoke()
 
 
 def run(impl, scores, label, orders, **kw):
@@ -224,3 +238,65 @@ def test_estep_labels_dispatch():
         estep_labels(s, lab, o, EStepConfig(method="fixed"))
     with pytest.raises(ValueError, match="orders"):
         estep(s, lab, o[:2])
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case(case, h, w):
+    """One K1 edge case: its inputs, the plain version's results at
+    digit_bits=1 (the bisection) and np.partition's thresholds."""
+    scores, label, orders, kw = SMOKE.k1_edge_case(case, h, w)
+    args, kkw = SMOKE.k1_inputs(scores, label, orders, torch.device("cpu"), **kw)
+    out1, th1 = k1.estep_plain(*args, **kkw, digit_bits=1)
+    want_th = partition_thresholds(scores, label, orders, **kw)
+    return scores, label, orders, kw, args, kkw, out1, th1, want_th
+
+
+@pytest.mark.parametrize("digit_bits", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("h,w", [(7, 7), (20, 30), (41, 41)], ids=["hw49", "hw600", "hw1681"])
+@pytest.mark.parametrize("case", SMOKE.K1_EDGE_CASES)
+def test_search_width_keeps_every_bit(case, h, w, digit_bits):
+    """K1's plain version with a round width of ``digit_bits`` bits (the
+    kernel's K1_DIGIT_BITS) gives thresholds and outputs bit-equal to the
+    bisection (``digit_bits=1``) and thresholds bit-equal to np.partition,
+    on the edge cases: ties at the k-th value, all-zero, subnormal and
+    +inf diffs, k = 0 and k = HW-1, void rows and an untagged image. At
+    HW 49 it also agrees with JAX's estep_pallas in interpret mode:
+    argmax identical and scores within 2e-6 of the largest score (the
+    final shift is summed in another order); in the ``inf`` case the
+    shift is exactly 0 in both, so the scores are bit-equal. JAX's CPU
+    backend flushes subnormals to zero, so in the ``subnormal`` case the
+    argmax and scores are held to the numpy oracle instead (bit-equal)."""
+    scores, label, orders, kw, args, kkw, out1, th1, want_th = _edge_case(case, h, w)
+    out, th = k1.estep_plain(*args, **kkw, digit_bits=digit_bits)
+    assert torch.equal(th.view(torch.int32), th1.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), out1.view(torch.int32))
+    np.testing.assert_array_equal(th.numpy().view(np.int32), want_th.view(np.int32))
+    if h * w != 49:
+        return
+    got = out.reshape(2, 5, h, w).permute(0, 2, 3, 1).numpy()
+    want = _pallas_edge(case)
+    if case == "subnormal":
+        oracle = estep_oracle(scores, label, orders=orders, **kw)
+        np.testing.assert_array_equal(got.view(np.int32), oracle.view(np.int32))
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+        return
+    np.testing.assert_array_equal(got.argmax(3), want.argmax(3))
+    if case == "inf":
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-6 * max(1.0, float(np.abs(want).max())),
+                                   rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_edge(case):
+    scores, label, orders, kw = SMOKE.k1_edge_case(case, 7, 7)
+    return np.asarray(estep_pallas(jnp.asarray(scores), jnp.asarray(label), jnp.asarray(orders),
+                                   interpret=True, **kw))
+
+
+def test_search_rounds():
+    """A present visit takes ceil(31 / R) block rounds: 31 for the
+    bisection, 8 for the kernel's default R = 4."""
+    assert [k1.search_rounds(r) for r in (1, 2, 3, 4, 5)] == [31, 16, 11, 8, 7]
+    assert k1.search_rounds(k1.DIGIT_BITS) <= 8

@@ -11,6 +11,7 @@ a card and no JAX it runs as:
 """
 
 import glob
+import importlib.util
 import os
 
 import numpy as np
@@ -19,6 +20,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 FIXTURES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "fixtures", "estep_*.npz")))
+
+
+def _load_chip_smoke():
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: chip_smoke.py, for K1's edge cases and the np.partition thresholds.
+SMOKE = _load_chip_smoke()
 
 
 @pytest.fixture
@@ -90,6 +103,60 @@ def test_cuda_kernel_rejects_state_larger_than_shared_memory(cuda_device):
     o = make_class_orders(torch.Generator(cuda_device).manual_seed(0), 5, 21)
     with pytest.raises(ValueError, match="ROADMAP"):
         estep_bisect(s, lab, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SMOKE.K1_EDGE_CASES)
+def test_cuda_kernel_edge_cases_match_plain(cuda_device, case):
+    """K1 on chip_smoke.py's edge cases at HW 49, 512, 600, 1024 and 1681
+    (one, two and four pixels a thread): thresholds bit-equal to the
+    plain version and to np.partition, argmax identical, scores within
+    2e-5 (the final shift's sums run in another order)."""
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    for h, w in SMOKE.K1_EDGE_SIZES:
+        scores, label, orders, kw = SMOKE.k1_edge_case(case, h, w)
+        args, kkw = SMOKE.k1_inputs(scores, label, orders, cuda_device, **kw)
+        out, th = k1.estep_kernel(*args, **kkw)
+        out_p, th_p = k1.estep_plain(*(a.cpu() for a in args), **kkw)
+        torch.cuda.synchronize()
+        assert torch.equal(th.cpu().view(torch.int32), th_p.view(torch.int32)), (h, w)
+        want = SMOKE.partition_thresholds(scores, label, orders, **kw)
+        np.testing.assert_array_equal(th.cpu().numpy().view(np.int32), want.view(np.int32))
+        assert torch.equal(out.argmax(1).cpu(), out_p.argmax(1)), (h, w)
+        np.testing.assert_allclose(out.cpu().numpy(), out_p.numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_reproducible(cuda_device):
+    """Two K1 runs on the same inputs give the same bits."""
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    inputs = [(*SMOKE.realistic_batch(np.random.default_rng(6), 6), SMOKE.K1_RECIPE),
+              SMOKE.k1_edge_case("ties", 41, 41)]
+    for scores, label, orders, recipe in inputs:
+        args, kw = SMOKE.k1_inputs(scores, label, orders, cuda_device, **recipe)
+        first, again = k1.estep_kernel(*args, **kw), k1.estep_kernel(*args, **kw)
+        for a, b in zip(first, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_builds_without_spills(cuda_device):
+    """K1's three instances (1, 2 and 4 pixels a thread) spill no register
+    within 128 (512 threads a block), and the build fixes the plain
+    version's DIGIT_BITS a round: at most 8 rounds a present visit."""
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
+    from em_adapt_torch.utils import build
+
+    build.build("estep")
+    for ppt in (1, 2, 4):
+        report = ptxas_report(build.build_logs[("estep", ())], f"estep_kernelILi{ppt}E")
+        assert report["spill_stores"] == report["spill_loads"] == 0, ppt
+        assert report["registers"] <= 128, ppt
+    assert k1._lib().em_estep_digit_bits() == k1.DIGIT_BITS
+    assert k1.search_rounds(k1.DIGIT_BITS) <= 8
 
 
 def _block1_case(g, b, h, large_bias, device):
