@@ -580,6 +580,236 @@ def time_k1_on(args, kw) -> dict:
                 fixed_ms=fixed_ms, visit_us=visit_us)
 
 
+#: The resume phase: run A trains RESUME_STEPS steps uninterrupted at
+#: RESUME_EPOCH steps an epoch (so the LR drops at step RESUME_EPOCH) and
+#: saves "norm" every RESUME_SAVE_EVERY steps; run B is sent SIGTERM by its
+#: log_fn after step RESUME_SIGNAL_AFTER, saves at the next step, which is
+#: mid-accumulation (7 mod 5 = 2), and a fresh Trainer resumes it.
+RESUME_STEPS, RESUME_EPOCH, RESUME_SAVE_EVERY, RESUME_SIGNAL_AFTER = 12, 6, 4, 6
+#: Settings tried in turn until two uninterrupted runs agree bit for bit.
+DETERMINISM_LEVELS = ("default", "cudnn.deterministic", "use_deterministic_algorithms")
+
+
+def set_determinism(level: str) -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic = level != "default"
+    torch.use_deterministic_algorithms(level == "use_deterministic_algorithms", warn_only=True)
+
+
+def resume(device, card: str) -> dict:
+    """Phase "resume bf16": full-state checkpoint and resume at full width
+    (bf16, fused block 1: K1, K2 and K3 each once a step; batch 6,
+    accumulation 5). Two uninterrupted runs A are compared under the
+    default settings, then under stricter ones until two agree; run B,
+    stopped by SIGTERM and resumed in a fresh Trainer, must end on run
+    A's state bit for bit (params, momentum, acc, mini_step, step,
+    generator) with the same losses, and a model loaded by
+    ``restore_params`` must give the resumed model's logits bit for bit.
+    Prints the checkpoint's bytes and the save, async-stall and restore
+    times. Writes under build/ and removes what it wrote."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from em_adapt_torch.config import CheckpointConfig, ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.models.deeplab import build_model
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.checkpoint import STATE_FILE, CheckpointManager, to_host
+    from em_adapt_torch.train.state import bitwise_diff
+    from em_adapt_torch.train.trainer import Trainer
+
+    tag = "resume bf16"
+    base = ExperimentConfig()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, compute_dtype="bfloat16", block1_impl="pallas"),
+        optim=dataclasses.replace(base.optim, lr_schedule=((1, 1e-4),)))
+    bs = cfg.train.batch_size
+    data = SyntheticVOC(bs * RESUME_EPOCH, cfg.model.num_classes, seed=0)
+    stop_step = RESUME_SIGNAL_AFTER + 1
+    if stop_step % cfg.optim.accum_steps == 0:
+        raise AssertionError(f"{tag}: the stop step {stop_step} ends an accumulation window")
+    want_a = {"norm": [8, 12], "lr": [RESUME_EPOCH]}  # "norm" at 4, 8, 12, newest two kept
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="resume-", dir=os.path.join(ROOT, "build"))
+
+    def trainer_for(name: str):
+        c = cfg.replace(checkpoint=CheckpointConfig(save_dir=os.path.join(root, name),
+                                                    save_every_steps=RESUME_SAVE_EVERY))
+        return Trainer(c, device=device, steps_per_epoch=RESUME_EPOCH)
+
+    def run(trainer, state, start: int = 0, log_fn=None) -> list[dict]:
+        batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0, start_step=start)
+        try:
+            return trainer.fit(state, batches, num_steps=RESUME_STEPS, log_fn=log_fn)
+        finally:
+            batches.close()
+
+    def run_a(name: str):
+        trainer = trainer_for(name)
+        state = trainer.init_state()
+        records = run(trainer, state)
+        steps = {t: trainer.checkpointer.all_steps(t) for t in want_a}
+        if steps != want_a:
+            raise AssertionError(f"{tag}: run A saved {steps}, expected {want_a}")
+        shutil.rmtree(trainer.cfg.checkpoint.save_dir)
+        return records, to_host(state.state_dict())
+
+    def median_ms(records) -> float:
+        return statistics.median(r["seconds"] for r in records[2:]) * 1e3
+
+    def run_b():
+        """Run B to the SIGTERM, then resumed in a fresh Trainer to the end."""
+        trainer = trainer_for("b")
+        state = trainer.init_state()
+
+        def preempt(record):
+            if record["step"] == RESUME_SIGNAL_AFTER:
+                signal.raise_signal(signal.SIGTERM)
+
+        first = run(trainer, state, log_fn=preempt)
+        ckpt = trainer.checkpointer
+        steps = {t: ckpt.all_steps(t) for t in want_a}
+        if state.step != stop_step or steps != {"norm": [4, stop_step], "lr": [RESUME_EPOCH]}:
+            raise AssertionError(f"{tag}: SIGTERM left step {state.step} and saves {steps}")
+        nbytes = os.path.getsize(os.path.join(ckpt.step_dir("norm", stop_step), STATE_FILE))
+
+        trainer = trainer_for("b")
+        resumed = trainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.checkpointer.restore(resumed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if bitwise_diff(resumed.state_dict(), trainer.checkpointer.load()):
+            raise AssertionError(f"{tag}: the restored state differs from the saved one")
+        if resumed.step != stop_step or resumed.optimizer.mini_step != mini_step:
+            raise AssertionError(f"{tag}: restored step {resumed.step}, mini_step "
+                                 f"{resumed.optimizer.mini_step}")
+        listed = {}
+
+        def watch(record):
+            if record["step"] == 8:  # "norm" 8 was saved right after step 7
+                trainer.checkpointer.wait()
+                listed["norm"] = trainer.checkpointer.all_steps("norm")
+
+        k1.launches = k23.launches = k23.bwd_launches = 0
+        second = run(trainer, resumed, start=stop_step, log_fn=watch)
+        launches = dict(estep=k1.launches, block1_fwd=k23.launches, block1_bwd=k23.bwd_launches)
+        n = RESUME_STEPS - stop_step
+        if [r["step"] for r in second] != list(range(stop_step, RESUME_STEPS)):
+            raise AssertionError(f"{tag}: resumed run ran steps {[r['step'] for r in second]}")
+        if launches != dict(estep=n, block1_fwd=n, block1_bwd=n) or any(
+                (r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                != (1, 1, 1) for r in second):
+            raise AssertionError(f"{tag}: launches after resume {launches}, expected {n} each")
+        if listed != {"norm": [stop_step, 8]} or {t: trainer.checkpointer.all_steps(t)
+                                                  for t in want_a} != want_a:
+            raise AssertionError(f"{tag}: 'norm' held {listed} at step 8")
+        return dict(trainer=trainer, state=resumed, records=first + second, nbytes=nbytes,
+                    restore_s=restore_s, launches=launches, listed=listed["norm"])
+
+    mini_step = stop_step % cfg.optim.accum_steps
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    try:
+        levels = {}
+        for level in DETERMINISM_LEVELS:
+            set_determinism(level)
+            (rec1, a1), (rec2, a2) = run_a(f"a-{level}-1"), run_a(f"a-{level}-2")
+            diff = bitwise_diff(a1, a2)
+            loss_steps = [r["step"] for r, q in zip(rec1, rec2) if r["loss"] != q["loss"]]
+            gap = max(float((a1["params"][k] - a2["params"][k]).abs().max()) for k in a1["params"])
+            b = run_b()
+            b_diff = bitwise_diff(b["state"].state_dict(), a1)
+            b_loss_steps = [r["step"] for r, q in zip(b["records"], rec1) if r["loss"] != q["loss"]]
+            equal = not (diff or loss_steps or b_diff or b_loss_steps)
+            levels[level] = dict(equal=equal, leaves=len(diff), loss_steps=loss_steps,
+                                 max_param_gap=gap, b_leaves=len(b_diff),
+                                 b_loss_steps=b_loss_steps, step_ms=median_ms(rec1 + rec2))
+            log(f"{tag}: under {level} settings, two uninterrupted {RESUME_STEPS}-step runs A "
+                f"{'agree' if not (diff or loss_steps) else 'DIFFER'} ({len(diff)} leaves of the "
+                f"state differ, losses at steps {loss_steps}, max |param gap| {gap:.3e}); run B "
+                f"(resumed) against A: {len(b_diff)} leaves differ, losses at steps "
+                f"{b_loss_steps}; median step {levels[level]['step_ms']:.2f} ms ({card})")
+            if equal:
+                break
+            shutil.rmtree(os.path.join(root, "b"))
+        else:
+            raise AssertionError(f"{tag}: runs differ under every setting: {levels}")
+        if level != "default":
+            log(f"{tag}: bit-exact resume needs {level}: median step "
+                f"{levels[level]['step_ms']:.2f} ms against {levels['default']['step_ms']:.2f} ms "
+                f"with the defaults ({card})")
+        trainer_b, resumed, launches = b["trainer"], b["state"], b["launches"]
+        log(f"{tag}: run B (SIGTERM after step {RESUME_SIGNAL_AFTER}, saved at step {stop_step}, "
+            f"mini_step {mini_step}, resumed in a fresh Trainer) ends on run A's state bit for "
+            f"bit at step {RESUME_STEPS} (params, momentum, acc, mini_step, step, generator); "
+            f"losses of steps 0-{RESUME_STEPS - 1} bit-equal; launches after resume "
+            f"{launches}; 'norm' held {b['listed']} at step 8, 'lr' {want_a['lr']}")
+
+        model = build_model(cfg.model, cfg.train.seed + 1, device)
+        loaded = trainer_b.checkpointer.restore_params(model)
+        images = next(batch_iterator(SyntheticVOC(bs, cfg.model.num_classes, seed=1), cfg.data,
+                                     batch_size=bs, epochs=1, train=False))["image"]
+        x = torch.from_numpy(images).to(device)
+        with torch.no_grad():
+            got = model.eval().predict(x)
+            want = resumed.model.eval().predict(x)
+        resumed.model.train()
+        if loaded != RESUME_STEPS or bitwise_diff(list(got), list(want)):
+            raise AssertionError(f"{tag}: restore_params (step {loaded}) gives other logits")
+        log(f"{tag}: a fresh model loaded by restore_params (step {loaded}) predicts {x.shape[0]} "
+            f"images with logits bit-equal to the resumed model's")
+        shutil.rmtree(os.path.join(root, "b"))
+
+        batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0, start_step=RESUME_STEPS)
+
+        def step_s() -> float:
+            batch = next(batches)
+            t = time.perf_counter()
+            float(trainer_b.train_step(resumed, batch)["loss"])
+            return time.perf_counter() - t
+
+        try:
+            timing = {}
+            for mode in ("sync", "async"):
+                mgr = CheckpointManager(CheckpointConfig(save_dir=os.path.join(root, mode),
+                                                         async_save=mode == "async"))
+                plain = [step_s() for _ in range(3)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(resumed, "norm")
+                call_s = time.perf_counter() - t0
+                during = step_s()
+                mgr.wait()
+                timing[mode] = dict(call_s=call_s, total_s=time.perf_counter() - t0,
+                                    step_ms=statistics.median(plain) * 1e3,
+                                    step_during_ms=during * 1e3)
+        finally:
+            batches.close()
+        sync, asy = timing["sync"], timing["async"]
+        stall_ms = asy["call_s"] * 1e3 + max(asy["step_during_ms"] - asy["step_ms"], 0.0)
+        nbytes = b["nbytes"]
+        log(f"{tag}: checkpoint {nbytes} B ({nbytes / 1e9:.3f} GB) for "
+            f"{sum(p.numel() for p in resumed.model.parameters())} params; sync save "
+            f"{sync['call_s']:.3f} s; async save returns in {asy['call_s']:.3f} s (host copy) and "
+            f"is on disk after {asy['total_s']:.3f} s, the step it overlaps takes "
+            f"{asy['step_during_ms']:.2f} ms against {asy['step_ms']:.2f} ms: training stalls "
+            f"{stall_ms:.1f} ms a save; restore {b['restore_s']:.3f} s ({card})")
+        return dict(bytes=b["nbytes"], sync_s=sync["call_s"], async_call_s=asy["call_s"],
+                    async_total_s=asy["total_s"], stall_ms=stall_ms, restore_s=b["restore_s"],
+                    level=level, levels=levels, launches=launches)
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def grads_bf16(device) -> dict:
     """One microstep at full width, bf16, He init, on one batch with the
     same dropout masks and E-step orders, through the fused block 1 (K2
@@ -1272,7 +1502,8 @@ def main(argv=None) -> int:
     from em_adapt_torch.utils import build
 
     device = torch.device("cuda", 0)
-    log(card_info())
+    card = card_info()
+    log(card)
     set_precision("float32")
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1311,6 +1542,7 @@ def main(argv=None) -> int:
         f"image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, profiler "
         f"{measured(t6['prof_ms'], 4, 'ms')}, fixed {measured(t6['fixed_ms'], 4, 'ms')}, "
         f"{measured(t6['visit_us'], 3, 'us')} a visit, present visits per image {t6['present']}")
+    resume(device, card)
     grads_bf16(device)
     time_block1_train(device)
     eval_result = evaluate(device)

@@ -91,8 +91,27 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Full-state checkpoints (``em_adapt_tpu/config.py:189-202``): "norm"
+    every ``save_every_steps`` microbatch steps (reference deeplab.py:277-278;
+    0 disables it), the newest ``max_to_keep`` kept (reference
+    network.py:100), and an "lr" snapshot right before each LR drop
+    (reference deeplab.py:248, :254, :260)."""
+
+    save_dir: str = "saver"
+    save_every_steps: int = 6000
+    max_to_keep: int = 2
+    snapshot_on_lr_drop: bool = True
+    #: Copy the state to host memory in ``save`` and write the file on a thread.
+    async_save: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 6  # reference deeplab.py:288
+    #: The step budget when none is given: epochs * steps_per_epoch
+    #: (reference deeplab.py:291).
+    epochs: int = 40
     seed: int = 0
 
 
@@ -113,6 +132,7 @@ class ExperimentConfig:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -130,7 +150,7 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         (train and cfg.estep.method == "fixed", "estep.method='fixed'",
          "Queue 1 item 3 (EM-Fixed)"),
         (train and cfg.optim.lr_multipliers, "optim.lr_multipliers=True",
-         "Queue 1 item 2 (trainer loop, checkpoint and resume)"),
+         "Queue 1 item 2 (2d, the training variants)"),
         (not train and cfg.eval.use_crf, "eval.use_crf=True",
          "Queue 1 item 7 (the VOC protocol and the CRF)"),
     ]

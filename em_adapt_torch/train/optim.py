@@ -70,3 +70,36 @@ class AccumulatingSGD:
             group["lr"] = lr_at(self.cfg, self.steps_per_epoch, step)
         self.sgd.step()
         return True
+
+    def state_dict(self) -> dict:
+        """Momentum buffers (None where SGD has not made one yet), the
+        accumulator and the accumulation position. The tensors are the live
+        ones: a caller that keeps them past the next step copies them."""
+        return {
+            "momentum": [self.sgd.state[p].get("momentum_buffer") if p in self.sgd.state
+                         else None for p in self.params],
+            "acc": self.acc,
+            "mini_step": self.mini_step,
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy ``sd`` (from :meth:`state_dict`) in; raises when its layout
+        is another optimizer config's. A None buffer stays absent, so the
+        first update copies its gradient in as SGD does."""
+        momentum, acc = sd["momentum"], sd["acc"]
+        shapes = [p.shape for p in self.params]
+        if (len(momentum) != len(shapes)
+                or any(b is not None and b.shape != s for b, s in zip(momentum, shapes))
+                or (acc is None) != (self.acc is None)
+                or (acc is not None and [a.shape for a in acc] != shapes)):
+            raise ValueError("optimizer state does not match this optimizer's parameters "
+                             "and accumulation config")
+        for p, buf in zip(self.params, momentum):
+            if buf is None:
+                self.sgd.state.pop(p, None)
+            else:
+                self.sgd.state[p]["momentum_buffer"] = buf.to(p.device, p.dtype, copy=True)
+        if acc is not None:
+            for a, src in zip(self.acc, acc):
+                a.copy_(src)
+        self.mini_step = int(sd["mini_step"])

@@ -167,13 +167,14 @@ def test_eval_mode_accepts_bf16_and_pallas_training_does_not():
     assert (port.batch_size, port.use_crf) == (ref.batch_size, ref.use_crf)
 
 
-def test_eval_cli_on_cpu(capsys):
+def test_eval_cli_on_cpu(capsys, tmp_path):
     from em_adapt_torch.__main__ import main
 
     args = ["eval", "--synthetic", "5", "--fixed-size", "--device", "cpu",
             "model.width_multiplier=0.125", "model.fc6_channels=8", "model.num_classes=4",
             "model.input_size=(33, 33)", "eval.batch_size=2", "data.num_workers=1",
-            "model.compute_dtype=bfloat16", "model.block1_impl=pallas", "model.init_scheme=he"]
+            "model.compute_dtype=bfloat16", "model.block1_impl=pallas", "model.init_scheme=he",
+            f"checkpoint.save_dir={tmp_path}"]
     assert main(args) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "warning: no checkpoint found; evaluating fresh init"

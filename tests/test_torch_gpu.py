@@ -419,3 +419,128 @@ def test_bf16_train_step_launches_k2_and_k3_once(cuda_device):
     grads = [p.grad for p in state.model.parameters()]
     assert all(p is not None and bool(torch.isfinite(p).all()) for p in grads)
     assert float(state.model.layers["conv1_2"].weight.grad.abs().sum()) > 0
+
+
+#: The settings under which chip_smoke.py's "resume bf16" phase found two
+#: uninterrupted bf16 runs, and a run resumed from its checkpoint, bit-equal
+#: on an NVIDIA H100 80GB HBM3 (PERF.md §6): one of
+#: chip_smoke.DETERMINISM_LEVELS.
+RESUME_DETERMINISM = "default"
+
+
+@pytest.fixture
+def resume_determinism():
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    SMOKE.set_determinism(RESUME_DETERMINISM)
+    yield
+    torch.backends.cudnn.deterministic = saved[0]
+    torch.use_deterministic_algorithms(saved[1])
+
+
+def _small_trainer(device, save_dir, **model):
+    import dataclasses
+
+    from em_adapt_torch.config import CheckpointConfig, ExperimentConfig
+    from em_adapt_torch.train.trainer import Trainer
+
+    cfg = ExperimentConfig()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, num_classes=4, input_size=(33, 33), fc6_channels=8,
+                                  **model),
+        data=dataclasses.replace(cfg.data, input_size=(33, 33), num_workers=2),
+        optim=dataclasses.replace(cfg.optim, accum_steps=3, lr_schedule=((1, 1e-4),)),
+        train=dataclasses.replace(cfg.train, batch_size=2),
+        checkpoint=CheckpointConfig(save_dir=str(save_dir), save_every_steps=0))
+    return Trainer(cfg, device=device, steps_per_epoch=4)
+
+
+def _batches(trainer, start_step=0):
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+
+    return batch_iterator(SyntheticVOC(8, 4), trainer.cfg.data, batch_size=2, seed=0,
+                          start_step=start_step)
+
+
+@pytest.mark.gpu
+def test_cuda_generator_state_round_trips(cuda_device, tmp_path):
+    """A CUDA generator's state is a CPU byte tensor; saved with torch.save
+    and set on a fresh CUDA generator, it draws the same numbers."""
+    g = torch.Generator(cuda_device).manual_seed(3)
+    torch.rand(10, generator=g, device=cuda_device)
+    state = g.get_state()
+    assert state.device.type == "cpu" and state.dtype == torch.uint8
+    torch.save(state, tmp_path / "generator.pt")
+    want = torch.rand(1000, generator=g, device=cuda_device)
+    perm = torch.randperm(20, generator=g, device=cuda_device)
+    other = torch.Generator(cuda_device)
+    other.set_state(torch.load(tmp_path / "generator.pt", weights_only=True))
+    assert torch.equal(torch.rand(1000, generator=other, device=cuda_device), want)
+    assert torch.equal(torch.randperm(20, generator=other, device=cuda_device), perm)
+
+
+@pytest.mark.gpu
+def test_bf16_resume_on_the_card_is_bit_exact(cuda_device, tmp_path, resume_determinism):
+    """bf16 with the fused block 1 (K1, K2, K3 once a step), accumulation
+    3: a run stopped at step 4 (mid-window), saved, restored into a fresh
+    Trainer and run to step 8 ends on the uninterrupted run's state (params,
+    momentum, acc, mini_step, step, generator) and losses, bit for bit."""
+    from em_adapt_torch.train.state import bitwise_diff
+
+    model = dict(compute_dtype="bfloat16", block1_impl="pallas")
+    control = _small_trainer(cuda_device, tmp_path / "control", **model)
+    want = control.init_state()
+    want_records = control.fit(want, _batches(control), num_steps=8)
+    first = _small_trainer(cuda_device, tmp_path / "run", **model)
+    state = first.init_state()
+    first.fit(state, _batches(first), num_steps=4)
+    first.checkpointer.save(state, "norm")
+    first.checkpointer.close()
+    trainer = _small_trainer(cuda_device, tmp_path / "run", **model)
+    resumed = trainer.restore_state()
+    assert resumed.step == 4 and resumed.optimizer.mini_step == 1
+    records = trainer.fit(resumed, _batches(trainer, 4), num_steps=8)
+    assert all((r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+               == (1, 1, 1) for r in records)
+    assert [r["loss"] for r in records] == [r["loss"] for r in want_records[4:]]
+    assert bitwise_diff(resumed.state_dict(), want.state_dict()) == []
+
+
+@pytest.mark.gpu
+def test_async_save_of_cuda_state_then_in_place_update(cuda_device, tmp_path, monkeypatch):
+    """An async save copies the CUDA state to the host before it returns:
+    params, momentum, acc and the generator updated in place while the
+    file is still being written do not reach it."""
+    import copy
+    import threading
+    import time
+
+    from em_adapt_torch.config import CheckpointConfig
+    from em_adapt_torch.train.checkpoint import CheckpointManager
+    from em_adapt_torch.train.state import bitwise_diff
+
+    trainer = _small_trainer(cuda_device, tmp_path / "unused")
+    state = trainer.init_state()
+    trainer.fit(state, _batches(trainer), num_steps=4)  # one update made, acc mid-window
+    want = copy.deepcopy(state.state_dict())
+    real_save, started = torch.save, threading.Event()
+
+    def slow_save(obj, f, *a, **kw):
+        started.set()
+        time.sleep(0.3)
+        return real_save(obj, f, *a, **kw)
+
+    monkeypatch.setattr(torch, "save", slow_save)
+    ckpt = CheckpointManager(CheckpointConfig(save_dir=str(tmp_path), async_save=True))
+    ckpt.save(state, "norm")
+    assert started.wait(10)
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.mul_(-2.0)
+        for buf in state.optimizer.state_dict()["momentum"]:
+            buf.add_(1.0)
+        for a in state.optimizer.acc:
+            a.add_(1.0)
+    torch.rand(4, generator=state.generator, device=cuda_device)
+    ckpt.close()
+    assert bitwise_diff(state.state_dict(), want) != []
+    assert bitwise_diff(want, ckpt.load("norm")) == []

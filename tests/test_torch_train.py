@@ -217,9 +217,10 @@ def test_batches_bit_identical_to_jax_pipeline():
                 np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_trainer_fit_on_cpu():
+def test_trainer_fit_on_cpu(tmp_path):
     _, pc = both_cfgs(accum=2, keep=0.5)
-    pc = pc.replace(data=dataclasses.replace(pc.data, input_size=(33, 33), num_workers=2))
+    pc = pc.replace(data=dataclasses.replace(pc.data, input_size=(33, 33), num_workers=2),
+                    checkpoint=pcfg.CheckpointConfig(save_dir=str(tmp_path)))
     from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
 
     trainer = Trainer(pc, device="cpu", steps_per_epoch=1)
@@ -236,7 +237,8 @@ def test_trainer_fit_on_cpu():
 
 
 def test_config_defaults_match_jax_and_unported_values_raise():
-    for name in ("EStepConfig", "ModelConfig", "DataConfig", "OptimConfig", "TrainConfig"):
+    for name in ("EStepConfig", "ModelConfig", "DataConfig", "OptimConfig", "TrainConfig",
+                 "CheckpointConfig"):
         port = getattr(pcfg, name)()
         ref = getattr(jcfg, name)()
         for f in dataclasses.fields(port):
@@ -257,7 +259,7 @@ def test_config_defaults_match_jax_and_unported_values_raise():
         pcfg.check_supported(cfg, "eval")
 
 
-def test_entry_points_need_a_device_choice(monkeypatch, capsys):
+def test_entry_points_need_a_device_choice(monkeypatch, capsys, tmp_path):
     """With no card and no device given, the entry points raise; with
     device='cpu' the CLI trains and prints one record per step."""
     from em_adapt_torch.__main__ import main
@@ -269,7 +271,7 @@ def test_entry_points_need_a_device_choice(monkeypatch, capsys):
     args = ["train", "--synthetic", "4", "--steps", "2", "model.width_multiplier=0.125",
             "model.fc6_channels=8", "model.num_classes=4", "model.input_size=(33, 33)",
             "train.batch_size=2", "optim.accum_steps=2", "data.num_workers=1",
-            "optim.lr_schedule=((1, 0.0001),)"]
+            "optim.lr_schedule=((1, 0.0001),)", f"checkpoint.save_dir={tmp_path}"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(args)
     assert main(args + ["--device", "cpu"]) == 0
