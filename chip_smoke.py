@@ -10,11 +10,14 @@ times K3 part by part (``em_adapt_torch/tools/bench_block1_bwd_parts.py``),
 and drives the port's paths: full-width DeepLab-LargeFOV training at
 321x321, batch 6, accumulation 5, through ``Trainer.fit`` in f32 (the
 E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
-backward K3), and the bf16 fixed-resolution evaluation at 321x321, eval
-batch 6, through ``Evaluator.evaluate_fixed`` (K2), then checks what
-comes out. Every phase raises on failure and the script then exits
-non-zero; without a CUDA card, or without the ``em_adapt_torch`` package
-beside it, it exits non-zero before printing any result. ``--quick``
+backward K3), batches copied through ``DevicePrefetcher``; the input
+layer (the producer alone, ``fit`` with and without the prefetcher, and
+``convert``, ``train`` and ``eval`` on a VOC-layout tree it writes); and
+the bf16 fixed-resolution evaluation at 321x321, eval batch 6, through
+``Evaluator.evaluate_fixed`` (K2), then checks what comes out. Every
+phase raises on failure and the script then exits non-zero; without a
+CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
+non-zero before printing any result. ``--quick``
 stops after the kernel checks; ``--profile N`` adds a torch.profiler
 breakdown of N more training steps.
 
@@ -402,6 +405,22 @@ def conv_flops(cfg, batch: int) -> int:
     return total
 
 
+def device_rows(prof, steps: int) -> list[tuple[float, int, str]]:
+    """(device ms a step, launches a step, name) of each device kernel and
+    copy in a torch.profiler trace of ``steps`` steps, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        kind = getattr(e, "device_type", None)
+        if e.key.startswith("aten::") or (kind is not None and "CUDA" not in str(kind)):
+            continue  # an operator's (or autograd Function's) row repeats its kernels' time
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_steps(trainer, state, batches, steps: int) -> None:
     """Device time by kernel over ``steps`` more training steps
     (torch.profiler), and the device's busy share of the window."""
@@ -414,17 +433,7 @@ def profile_steps(trainer, state, batches, steps: int) -> None:
         for _ in range(steps):
             float(trainer.train_step(state, next(batches))["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        kind = getattr(e, "device_type", None)
-        if e.key.startswith("aten::") or (kind is not None and "CUDA" not in str(kind)):
-            continue  # an operator's (or autograd Function's) row repeats its kernels' time
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3 / steps, e.count // steps, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     busy = sum(r[0] for r in rows) * steps
     log(f"profile: {steps} steps in {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%)" if rows else "profile: no device time recorded")
@@ -807,6 +816,288 @@ def resume(device, card: str) -> dict:
     finally:
         torch.backends.cudnn.deterministic = saved[0]
         torch.use_deterministic_algorithms(saved[1])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: The input phase: fit runs of INPUT_STEPS steps with and without the
+#: prefetcher, in turns (INPUT_DEPTHS), each followed by one step and then
+#: INPUT_PROFILED steps under torch.profiler; the producer alone over
+#: INPUT_STEPS batches.
+INPUT_STEPS = 20
+INPUT_PROFILED = 3
+INPUT_DEPTHS = (0, 2, 2, 0)
+#: The VOC-layout tree of the input phase: VOC's image size and JPEG
+#: quality, split into "train" and "val".
+VOC_TREE = dict(train=48, val=12, size=(500, 375), quality=90)
+
+
+def producer_ms(dataset, data_cfg, batch_size: int, batches: int, train: bool = True):
+    """The host producer alone: ``batch_iterator``'s ms per batch (median
+    and mean over ``batches`` after one warm-up batch) and a batch's bytes."""
+    from em_adapt_torch.data.pipeline import batch_iterator
+
+    it = batch_iterator(dataset, data_cfg, batch_size=batch_size, seed=0, train=train)
+    try:
+        next(it)
+        times = []
+        for _ in range(batches):
+            t = time.perf_counter()
+            batch = next(it)
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        it.close()
+    nbytes = sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray))
+    return statistics.median(times), statistics.fmean(times), nbytes
+
+
+def input_phase(device, card: str) -> dict:
+    """Phase "input bf16": the host producer alone in both wire formats,
+    then ``Trainer.fit`` at the reference recipe in bf16 (K1, K2, K3; the
+    reference init: He init's loss turns NaN by step 15 at the reference
+    LR) for INPUT_STEPS steps with ``data.prefetch=0`` and ``=2`` in
+    turns, each followed by INPUT_PROFILED steps under torch.profiler (the
+    HtoD copies' device time and the device's busy share). Every run must
+    end on the same losses and state, bit for bit, with K1, K2 and K3 once
+    a step."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from em_adapt_torch.config import CheckpointConfig, ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.checkpoint import to_host
+    from em_adapt_torch.train.state import bitwise_diff
+    from em_adapt_torch.train.trainer import Trainer
+
+    tag = "input bf16"
+    base = ExperimentConfig()
+    bs = base.train.batch_size
+    steps = INPUT_STEPS + 1 + INPUT_PROFILED
+    data = SyntheticVOC(bs * steps, base.model.num_classes, seed=0)
+    producer = {}
+    for wire in ("float32", "uint8"):
+        med, mean, nbytes = producer_ms(data, dataclasses.replace(base.data, wire_dtype=wire),
+                                        bs, INPUT_STEPS)
+        producer[wire] = dict(median_ms=med, mean_ms=mean, bytes=nbytes)
+        log(f"{tag}: producer alone (batch_iterator, SyntheticVOC train, {base.data.num_workers} "
+            f"workers, {wire} wire): {med:.2f} ms per batch median, {mean:.2f} mean over "
+            f"{INPUT_STEPS} batches; {nbytes} B a batch ({card})")
+    root = tempfile.mkdtemp(prefix="input-", dir=os.path.join(ROOT, "build"))
+    runs, first = [], None
+    try:
+        for depth in INPUT_DEPTHS:
+            cfg = base.replace(
+                model=dataclasses.replace(base.model, compute_dtype="bfloat16",
+                                          block1_impl="pallas"),
+                data=dataclasses.replace(base.data, prefetch=depth),
+                checkpoint=CheckpointConfig(save_dir=root, save_every_steps=0,
+                                            snapshot_on_lr_drop=False))
+            trainer = Trainer(cfg, device=device, steps_per_epoch=len(data) // bs)
+            state = trainer.init_state()
+            batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0)
+            # Device activity only: tracing the host's operators too would slow
+            # the launching thread several times over and shrink the busy share.
+            prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+            window = []
+
+            def profiled(record):
+                if record["step"] == INPUT_STEPS:  # the second fit's first step is cold
+                    window.append(time.perf_counter())
+                    prof.start()
+                elif record["step"] == steps - 1:
+                    prof.stop()
+                    window.append(time.perf_counter())
+
+            try:
+                k1.launches = k23.launches = k23.bwd_launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                records = trainer.fit(state, batches, num_steps=INPUT_STEPS)
+                wall = time.perf_counter() - t0
+                launches = (k1.launches, k23.launches, k23.bwd_launches)
+                more = trainer.fit(state, batches, num_steps=steps, log_fn=profiled)
+            finally:
+                batches.close()
+            records += more
+            if [r["step"] for r in records] != list(range(steps)):
+                raise AssertionError(f"{tag}: prefetch={depth} ran steps "
+                                     f"{[r['step'] for r in records]}")
+            if launches != (INPUT_STEPS,) * 3 or any(
+                    (r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                    != (1, 1, 1) for r in records):
+                raise AssertionError(f"{tag}: prefetch={depth}: K1, K2, K3 launched {launches} "
+                                     f"times in {INPUT_STEPS} steps, expected 1 each a step")
+            losses = [r["loss"] for r in records]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{tag}: non-finite loss: {losses}")
+            host = to_host(state.state_dict())
+            if first is None:
+                first = dict(losses=losses, state=host)
+            else:
+                diff = bitwise_diff(host, first["state"])
+                if losses != first["losses"] or diff:
+                    at = [i for i, (a, b) in enumerate(zip(losses, first["losses"])) if a != b]
+                    raise AssertionError(
+                        f"{tag}: prefetch={depth} differs from prefetch={INPUT_DEPTHS[0]}: losses "
+                        f"at steps {at}, {len(diff)} leaves of the state")
+            del host
+            rows = device_rows(prof, INPUT_PROFILED)
+            busy = sum(r[0] for r in rows)
+            htod = [r for r in rows if "HtoD" in r[2]]
+            win_ms = (window[1] - window[0]) * 1e3 / INPUT_PROFILED
+            timed = records[2:INPUT_STEPS]
+            run = dict(depth=depth, wall_s=wall,
+                       step_ms=statistics.median(r["seconds"] for r in timed) * 1e3,
+                       wait_ms=statistics.median(r["wait_seconds"] for r in timed) * 1e3,
+                       first_ms=(records[0]["seconds"] + records[0]["wait_seconds"]) * 1e3,
+                       htod_ms=sum(r[0] for r in htod), busy_ms=busy, window_ms=win_ms)
+            runs.append(run)
+            log(f"{tag}: prefetch={depth}: fit wall {wall:.3f} s for {INPUT_STEPS} steps "
+                f"({wall / INPUT_STEPS * 1e3:.2f} ms/step; step 0 with its wait "
+                f"{run['first_ms']:.2f} ms); over steps 2..{INPUT_STEPS - 1} median step "
+                f"{run['step_ms']:.2f} ms, median wait for the batch {run['wait_ms']:.3f} ms; "
+                f"K1, K2, K3 launches {launches}; profiled steps {INPUT_STEPS + 1}..{steps - 1}: "
+                f"{win_ms:.2f} ms/step wall, device busy {busy:.2f} ms/step "
+                f"({100 * busy / win_ms:.1f}%, sum of device times), HtoD "
+                f"{run['htod_ms']:.3f} ms/step in "
+                f"{'; '.join(f'{c}x {k} {ms:.3f} ms' for ms, c, k in htod) or 'no copy'} "
+                f"({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{tag}: all {len(INPUT_DEPTHS)} runs (prefetch {list(INPUT_DEPTHS)}) end on the same "
+        f"state and {steps} losses bit for bit")
+    by = {d: [r for r in runs if r["depth"] == d] for d in set(INPUT_DEPTHS)}
+    summary = {d: {k: statistics.median(r[k] for r in rs) for k in rs[0] if k != "depth"}
+               for d, rs in by.items()}
+    for d, m in sorted(summary.items()):
+        log(f"{tag}: prefetch={d}, median of {len(by[d])} runs: fit wall {m['wall_s']:.3f} s "
+            f"({m['wall_s'] / INPUT_STEPS * 1e3:.2f} ms/step), step {m['step_ms']:.2f} ms, wait "
+            f"{m['wait_ms']:.3f} ms, HtoD {m['htod_ms']:.3f} ms/step, busy "
+            f"{100 * m['busy_ms'] / m['window_ms']:.1f}% ({card})")
+    return dict(producer=producer, runs=runs, summary=summary)
+
+def voc_tree_phase(device, card: str) -> dict:
+    """Phase "input VOC": the reader's whole path on a VOC-layout tree
+    written here (VOC_TREE: JPEGs at VOC's size and quality, RGB-coded
+    masks with a void border around each object, the split lists):
+    ``convert``, the producer with JPEG decode, ``train --steps 10`` and
+    ``eval --fixed-size`` through the command line, at full width in
+    bf16 with the fused block 1."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from PIL import Image, ImageDraw
+
+    from em_adapt_torch.__main__ import main as cli
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.pipeline import VOCSegmentation
+    from em_adapt_torch.data.voc import VOC_PALETTE, rgb_mask_to_index
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    tag = "input VOC"
+    base = ExperimentConfig()
+    bs = base.train.batch_size
+    root = tempfile.mkdtemp(prefix="voc-", dir=os.path.join(ROOT, "build"))
+    main_path, list_dir = os.path.join(root, "VOCdevkit", "VOC2012"), os.path.join(root, "txt")
+    seg_dir, aug_dir = (os.path.join(main_path, d) for d in ("SegmentationClass",
+                                                                 "SegmentationClassAug"))
+    try:
+        for d in (os.path.join(main_path, "JPEGImages"), seg_dir, list_dir):
+            os.makedirs(d)
+        g = np.random.default_rng(0)
+        w, h = VOC_TREE["size"]
+        t0 = time.perf_counter()
+        for split in ("train", "val"):
+            ids = [f"2012_{split}{i:04d}" for i in range(VOC_TREE[split])]
+            for img_id in ids:
+                low = Image.fromarray(g.integers(0, 256, size=(12, 16, 3), dtype=np.uint8))
+                img = np.asarray(low.resize((w, h), Image.BICUBIC), np.float32)
+                img = np.clip(img + g.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+                Image.fromarray(img).save(os.path.join(main_path, "JPEGImages", f"{img_id}.jpg"),
+                                          quality=VOC_TREE["quality"])
+                mask = Image.new("RGB", (w, h), VOC_PALETTE[0])
+                draw = ImageDraw.Draw(mask)
+                for _ in range(int(g.integers(1, 4))):  # 1-3 objects, each with a void border
+                    x0, y0 = int(g.integers(0, w // 2)), int(g.integers(0, h // 2))
+                    box = [x0, y0, x0 + int(g.integers(40, w // 2)),
+                           y0 + int(g.integers(40, h // 2))]
+                    draw.ellipse(box, fill=VOC_PALETTE[int(g.integers(1, 21))],
+                                 outline=(224, 224, 192), width=5)
+                mask.save(os.path.join(seg_dir, f"{img_id}.png"))
+            with open(os.path.join(list_dir, f"{split}.txt"), "w") as f:
+                f.write("\n".join(ids) + "\n")
+        written_s = time.perf_counter() - t0
+        n = VOC_TREE["train"] + VOC_TREE["val"]
+
+        def run(*argv) -> list[str]:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli(list(argv))
+            if rc != 0:
+                raise AssertionError(f"{tag}: {argv[0]} exited {rc}: {out.getvalue()[-2000:]}")
+            return out.getvalue().splitlines()
+
+        t0 = time.perf_counter()
+        run("convert", "--voc-seg", seg_dir, "--out", aug_dir)
+        convert_s = time.perf_counter() - t0
+        names = sorted(os.listdir(aug_dir))
+        if len(names) != n:
+            raise AssertionError(f"{tag}: convert wrote {len(names)} masks of {n}")
+        for name in names:
+            with Image.open(os.path.join(seg_dir, name)) as src, \
+                    Image.open(os.path.join(aug_dir, name)) as got:
+                if not np.array_equal(np.asarray(got), rgb_mask_to_index(np.asarray(src))):
+                    raise AssertionError(f"{tag}: convert's {name} is not its palette indices")
+        data_cfg = dataclasses.replace(base.data, main_path=main_path, list_dir=list_dir)
+        med, mean, nbytes = producer_ms(VOCSegmentation(data_cfg, "train"), data_cfg, bs,
+                                        INPUT_STEPS)
+        log(f"{tag}: {n} JPEGs of {w}x{h} at quality {VOC_TREE['quality']} with RGB-coded masks "
+            f"written in {written_s:.2f} s; convert {convert_s:.2f} s, every index mask the "
+            f"palette's; producer with JPEG decode (batch_iterator, VOCSegmentation train, "
+            f"{data_cfg.num_workers} workers, float32 wire): {med:.2f} ms per batch median, "
+            f"{mean:.2f} mean over {INPUT_STEPS} batches, {nbytes} B a batch ({card})")
+
+        args = [f"data.main_path={main_path}", f"data.list_dir={list_dir}",
+                "model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+                f"checkpoint.save_dir={os.path.join(root, 'saver')}"]
+        k1.launches = k23.launches = k23.bwd_launches = 0
+        t0 = time.perf_counter()
+        lines = run("train", "--steps", "10", *args)
+        train_s = time.perf_counter() - t0
+        launches = (k1.launches, k23.launches, k23.bwd_launches)
+        records = [json.loads(line) for line in lines if line.startswith("{")]
+        losses = [r["loss"] for r in records]
+        if [r["step"] for r in records] != list(range(10)) or launches != (10, 10, 10) or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"{tag}: train ran steps {[r['step'] for r in records]}, "
+                                 f"launches {launches}, losses {losses}")
+        k23.launches = 0
+        t0 = time.perf_counter()
+        lines = run("eval", "--fixed-size", *args)
+        eval_s = time.perf_counter() - t0
+        miou = float(lines[-1].split("=")[1])
+        want_batches = -(-VOC_TREE["val"] // base.eval.batch_size)
+        if (lines[0] != "evaluating checkpoint step 10" or k23.launches != want_batches
+                or not 0.0 <= miou <= 1.0 or len(lines) != 2 + base.model.num_classes):
+            raise AssertionError(f"{tag}: eval printed {lines}, K2 launched {k23.launches} "
+                                 f"times")
+        log(f"{tag}: `train --steps 10` on the tree: {train_s:.2f} s (its checkpoint included), "
+            f"losses {[round(v, 6) for v in losses]}, K1, K2, K3 launches {launches}, median "
+            f"step {statistics.median(r['seconds'] for r in records[2:]) * 1e3:.2f} ms, median "
+            f"wait {statistics.median(r['wait_seconds'] for r in records[2:]) * 1e3:.3f} ms; "
+            f"`eval --fixed-size` on its {VOC_TREE['val']} val images: {eval_s:.2f} s, K2 "
+            f"launches {k23.launches}, mIoU {miou:.4f} ({card})")
+        return dict(producer_ms=med, losses=losses, miou=miou)
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1389,7 +1680,7 @@ def evaluate(device) -> dict:
     import torch
 
     from em_adapt_torch.config import ExperimentConfig
-    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.data.pipeline import DevicePrefetcher, SyntheticVOC, batch_iterator
     from em_adapt_torch.eval.miou import miou_from_confusion
     from em_adapt_torch.eval.predict import Evaluator
     from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
@@ -1440,6 +1731,19 @@ def evaluate(device) -> dict:
             f"{int(cm.sum())} of {pixels[0]} non-void pixels, mIoU {miou:.6f}, wall "
             f"{wall:.3f} s, {EVAL_IMAGES / wall:.2f} images/s (whole window, batch fetch "
             f"included); the host's batch fetch took {fetch_s[0]:.3f} s of it")
+    k2.launches = 0
+    t0 = time.perf_counter()
+    with DevicePrefetcher(batch_iterator(data, base.data, batch_size=bs, seed=0, epochs=1,
+                                         train=False), device, depth=base.data.prefetch) as pf:
+        cm = evs["pallas"].confusion_fixed(pf)
+    wall = time.perf_counter() - t0
+    if not np.array_equal(cm, out["pallas"]["cm"]) or k2.launches != len(out["pallas"]["batches"]):
+        raise AssertionError(f"eval pallas through the prefetcher: K2 launched {k2.launches} "
+                             "times, or its confusion matrix differs from the unprefetched one")
+    prefetched_wall = wall
+    log(f"eval pallas through DevicePrefetcher (depth {base.data.prefetch}): K2 launches "
+        f"{k2.launches}, confusion matrix equal to the unprefetched pass's, wall {wall:.3f} s, "
+        f"{EVAL_IMAGES / wall:.2f} images/s (whole window)")
     x_dev = torch.from_numpy(out["pallas"]["batches"][0]["image"]).to(device)
     fwd = {impl: [] for impl in evs}
     for _ in range(3):  # rounds that alternate the modes, so both see the card alike
@@ -1478,7 +1782,8 @@ def evaluate(device) -> dict:
     if agree < 0.99:
         raise AssertionError(f"K2 and cuDNN block1 agree at only {100 * agree:.4f}% of pixels")
     return dict(launches=p["launches"], images_per_s=EVAL_IMAGES / p["wall"],
-                conv_images_per_s=EVAL_IMAGES / x["wall"], agree=agree)
+                conv_images_per_s=EVAL_IMAGES / x["wall"],
+                prefetched_images_per_s=EVAL_IMAGES / prefetched_wall, agree=agree)
 
 
 def main(argv=None) -> int:
@@ -1543,6 +1848,8 @@ def main(argv=None) -> int:
         f"{measured(t6['prof_ms'], 4, 'ms')}, fixed {measured(t6['fixed_ms'], 4, 'ms')}, "
         f"{measured(t6['visit_us'], 3, 'us')} a visit, present visits per image {t6['present']}")
     resume(device, card)
+    input_phase(device, card)
+    voc_tree_phase(device, card)
     grads_bf16(device)
     time_block1_train(device)
     eval_result = evaluate(device)

@@ -65,11 +65,20 @@ class ModelConfig:
 class DataConfig:
     """Input pipeline (reference dataset.py:7-19, :107-145)."""
 
+    #: The VOC tree (JPEGImages, SegmentationClassAug) and the directory
+    #: of the split lists ``{split}.txt`` that ``VOCSegmentation`` reads.
+    main_path: str = "pascal/VOCdevkit/VOC2012"
+    list_dir: str = "pascal/txt"
     input_size: tuple[int, int] = (321, 321)
     random_scale: bool = True
     scale_range: tuple[float, float] = (0.75, 1.25)
     flip: bool = True
+    #: Keep only the first ``length`` ids of a split (reference dataset.py:38-42).
+    length: int | None = None
+    #: Host loader threads, and the batches ``DevicePrefetcher`` holds
+    #: ready on the device ahead of the step (0: no prefetcher).
     num_workers: int = 8
+    prefetch: int = 2
     #: "float32" (BGR mean-subtracted on the host) or "uint8" (raw RGB,
     #: normalized on the device).
     wire_dtype: str = "float32"

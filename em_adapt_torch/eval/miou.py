@@ -12,13 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: PASCAL VOC class names, index = label (em_adapt_tpu/data/voc.py:29).
-VOC_CLASS_NAMES: tuple[str, ...] = (
-    "background", "aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
-    "car", "cat", "chair", "cow", "diningtable", "dog", "horse",
-    "motorbike", "person", "pottedplant", "sheep", "sofa", "train",
-    "tvmonitor",
-)
+from em_adapt_torch.data.voc import VOC_CLASS_NAMES  # noqa: F401  (re-exported)
 
 
 def confusion_matrix(pred: torch.Tensor, gt: torch.Tensor, num_classes: int) -> torch.Tensor:

@@ -6,9 +6,10 @@ One microbatch step (reference deeplab.py:242-280): forward with dropout
 -> backward -> accumulated SGD with momentum. The pure-weak path of
 ``em_adapt_tpu/train/trainer.py::loss_fn`` (trainer.py:138-230).
 ``Trainer.fit`` is the loop of ``em_adapt_tpu/train/trainer.py::fit``
-(l.612-884) on one process: "norm" saves, "lr" snapshots, the preemption
-save and the loss watchdog. Semi-supervision, tag warm-up and periodic
-eval come with ROADMAP.md Queue 1 item 2 (2d).
+(l.612-884) on one process: the batches arrive through a
+``DevicePrefetcher`` (``data.prefetch`` deep); "norm" saves, "lr"
+snapshots, the preemption save and the loss watchdog. Semi-supervision,
+tag warm-up and periodic eval come with ROADMAP.md Queue 1 item 2 (2d).
 
 Randomness: one ``torch.Generator`` on the training device draws the
 dropout masks and the E-step's class orders. It gives other draws than
@@ -17,6 +18,7 @@ the JAX package's keys; tests inject the same orders and masks instead.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Iterable
 
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from em_adapt_torch.config import ExperimentConfig, check_supported
+from em_adapt_torch.data.pipeline import DevicePrefetcher
 from em_adapt_torch.device import resolve_device, set_precision
 from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
 from em_adapt_torch.ops import block1 as k23
@@ -98,7 +101,10 @@ def train_step(
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """Host numpy batch -> tensors on ``device`` (non-array leaves pass)."""
+    """The batch with its numpy arrays copied to ``device`` (from pageable
+    memory: ``Trainer.fit`` copies through ``DevicePrefetcher``'s pinned
+    ring instead). Tensors, and leaves that are not arrays, pass as they
+    are."""
     return {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
         if isinstance(v, np.ndarray) else v
@@ -147,6 +153,11 @@ class Trainer:
         budget: a resumed state runs only the rest; default epochs *
         steps_per_epoch), the batches end, or SIGTERM/SIGINT arrives.
 
+        With ``data.prefetch`` > 0 the batches go through a
+        ``DevicePrefetcher`` (unless they already do), which pulls no more
+        than the budget's rest and is closed on every way out; batches it
+        read ahead and that were not used are dropped.
+
         Saves "norm" where the step crosses a multiple of
         ``checkpoint.save_every_steps`` (0: never), "lr" right before the
         first step of each LR drop, and on a signal "norm" at the step
@@ -156,9 +167,11 @@ class Trainer:
         The budget and the signal are checked before a batch is pulled.
 
         Returns one record per step: step, loss, lr, whether the params
-        moved, the step's seconds (host clock, synchronized) and the
-        launches it made of the E-step kernel K1 and of the fused block1's
-        forward K2 and backward K3.
+        moved, ``wait_seconds`` (host clock in ``next()`` on the batches),
+        ``seconds`` (host clock from the batch in hand to the loss read,
+        which synchronizes the device) and the launches it made of the
+        E-step kernel K1 and of the fused block1's forward K2 and backward
+        K3.
         """
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.train.epochs * self.steps_per_epoch
@@ -167,45 +180,50 @@ class Trainer:
         every = cfg.checkpoint.save_every_steps
         watchdog = LossWatchdog()
         records = []
-        it = iter(batches)
         stop_step = None
-        with GracefulShutdown() as shutdown:
-            try:
-                while state.step < total:
-                    if stop_step is None and shutdown.requested_uniform():
-                        stop_step = shutdown.agreed_stop_step(state.step)
-                    if stop_step is not None and state.step >= stop_step:
-                        self.checkpointer.save(state, "norm")
-                        break
-                    batch = next(it, None)
-                    if batch is None:
-                        break
-                    if state.step in lr_drops:
-                        self.checkpointer.save(state, "lr")
-                    launches = (k1.launches, k23.launches, k23.bwd_launches)
-                    t0 = time.perf_counter()
-                    metrics = self.train_step(state, batch)
-                    loss = float(metrics["loss"])  # synchronizes the device
-                    seconds = time.perf_counter() - t0
-                    step = state.step - 1
-                    reason = watchdog.check(loss)
-                    if reason is not None:
-                        raise RuntimeError(f"training unhealthy at step {step}: {reason}")
-                    record = {
-                        "step": step,
-                        "loss": loss,
-                        "lr": lr_at(cfg.optim, self.steps_per_epoch, step),
-                        "updated": metrics["updated"],
-                        "seconds": seconds,
-                        "estep_launches": k1.launches - launches[0],
-                        "block1_fwd_launches": k23.launches - launches[1],
-                        "block1_bwd_launches": k23.bwd_launches - launches[2],
-                    }
-                    records.append(record)
-                    if log_fn is not None:
-                        log_fn(record)
-                    if every and step // every < state.step // every:
-                        self.checkpointer.save(state, "norm")
-            finally:
-                self.checkpointer.wait()
+        with GracefulShutdown() as shutdown, contextlib.ExitStack() as stack:
+            if cfg.data.prefetch > 0 and not isinstance(batches, DevicePrefetcher):
+                batches = DevicePrefetcher(batches, self.device, depth=cfg.data.prefetch,
+                                           limit=max(total - state.step, 0))
+                stack.callback(batches.close)
+            stack.callback(self.checkpointer.wait)
+            it = iter(batches)
+            while state.step < total:
+                if stop_step is None and shutdown.requested_uniform():
+                    stop_step = shutdown.agreed_stop_step(state.step)
+                if stop_step is not None and state.step >= stop_step:
+                    self.checkpointer.save(state, "norm")
+                    break
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                wait = time.perf_counter() - t0
+                if batch is None:
+                    break
+                if state.step in lr_drops:
+                    self.checkpointer.save(state, "lr")
+                launches = (k1.launches, k23.launches, k23.bwd_launches)
+                t0 = time.perf_counter()
+                metrics = self.train_step(state, batch)
+                loss = float(metrics["loss"])  # synchronizes the device
+                seconds = time.perf_counter() - t0
+                step = state.step - 1
+                reason = watchdog.check(loss)
+                if reason is not None:
+                    raise RuntimeError(f"training unhealthy at step {step}: {reason}")
+                record = {
+                    "step": step,
+                    "loss": loss,
+                    "lr": lr_at(cfg.optim, self.steps_per_epoch, step),
+                    "updated": metrics["updated"],
+                    "wait_seconds": wait,
+                    "seconds": seconds,
+                    "estep_launches": k1.launches - launches[0],
+                    "block1_fwd_launches": k23.launches - launches[1],
+                    "block1_bwd_launches": k23.bwd_launches - launches[2],
+                }
+                records.append(record)
+                if log_fn is not None:
+                    log_fn(record)
+                if every and step // every < state.step // every:
+                    self.checkpointer.save(state, "norm")
         return records

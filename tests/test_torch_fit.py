@@ -112,3 +112,75 @@ def test_resumed_fit_stops_at_the_absolute_budget(tmp_path):
     records = trainer_for(cfg).fit(resumed, batches(cfg, 3), num_steps=5)
     assert [r["step"] for r in records] == [3, 4] and resumed.step == 5
     assert trainer_for(cfg).fit(resumed, batches(cfg, 5), num_steps=5) == []
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16-fused-block1"])
+def test_fit_with_the_prefetcher_equals_fit_without(tmp_path, bf16):
+    """data.prefetch=2 and data.prefetch=0 give the same losses, saves and
+    final state (params, momentum, acc, generator), bit for bit; every
+    record has the host's wait for its batch."""
+    import dataclasses
+
+    from em_adapt_torch.train.state import bitwise_diff
+
+    runs = {}
+    for depth in (0, 2):
+        cfg = port_cfg(tmp_path / f"prefetch{depth}", bf16=bf16, save_every=3)
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, prefetch=depth))
+        trainer = trainer_for(cfg)
+        state = trainer.init_state()
+        records = trainer.fit(state, batches(cfg), num_steps=6)
+        runs[depth] = (records, state.state_dict(), trainer.checkpointer.all_steps("norm"))
+    (rec0, state0, saved0), (rec2, state2, saved2) = runs[0], runs[2]
+    assert [r["loss"] for r in rec2] == [r["loss"] for r in rec0]
+    assert len(rec2) == 6 and saved0 == saved2 == [3, 6]
+    assert bitwise_diff(state2, state0) == []
+    assert all(r["wait_seconds"] >= 0.0 and r["seconds"] > 0.0 for r in rec0 + rec2)
+
+
+def _poisoned(cfg, at):
+    for i, batch in enumerate(batches(cfg)):
+        if i == at:
+            batch = dict(batch, image=np.full_like(batch["image"], np.nan))
+        yield batch
+
+
+@pytest.mark.parametrize("way_out", ["budget", "batches-end", "sigterm", "watchdog"])
+def test_fit_closes_its_prefetcher_on_every_way_out(tmp_path, monkeypatch, way_out):
+    """The prefetcher fit makes is closed when the budget is reached, the
+    batches end, a SIGTERM stops the run and the watchdog raises: its
+    thread is dead and has left the source generator, which can then be
+    closed."""
+    import signal
+
+    from em_adapt_torch.data import pipeline
+    from em_adapt_torch.train import trainer as trainer_mod
+
+    made = []
+
+    class Recorded(pipeline.DevicePrefetcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(trainer_mod, "DevicePrefetcher", Recorded)
+    cfg = port_cfg(tmp_path, accum=1)
+    trainer = trainer_for(cfg)
+    state = trainer.init_state()
+    source = _poisoned(cfg, 1) if way_out == "watchdog" else batches(cfg)
+    stream = (b for _, b in zip(range(2), source)) if way_out == "batches-end" else source
+
+    def log_fn(record):
+        if way_out == "sigterm" and record["step"] == 0:
+            signal.raise_signal(signal.SIGTERM)
+
+    if way_out == "watchdog":
+        with pytest.raises(RuntimeError, match="training unhealthy at step 1"):
+            trainer.fit(state, stream, num_steps=5, log_fn=log_fn)
+    else:
+        records = trainer.fit(state, stream, num_steps=5, log_fn=log_fn)
+        want = {"budget": 5, "batches-end": 2, "sigterm": 1}[way_out]
+        assert len(records) == want and state.step == want
+    assert len(made) == 1 and made[0]._limit == 5
+    assert not made[0]._thread.is_alive()  # fit joined it before returning
+    stream.close()  # raises "generator already executing" if a thread were inside it

@@ -544,3 +544,102 @@ def test_async_save_of_cuda_state_then_in_place_update(cuda_device, tmp_path, mo
     ckpt.close()
     assert bitwise_diff(state.state_dict(), want) != []
     assert bitwise_diff(want, ckpt.load("norm")) == []
+
+
+def _sleepy_prefetcher(cycles):
+    """A DevicePrefetcher whose copy stream spins ``cycles`` clock cycles
+    before each batch's copies: its batches arrive on the card late."""
+    from em_adapt_torch.data.pipeline import DevicePrefetcher
+
+    class Sleepy(DevicePrefetcher):
+        def _upload(self, batch, slot):
+            torch.cuda._sleep(cycles)  # on the fill thread's current stream: the copy stream
+            return super()._upload(batch, slot)
+
+    return Sleepy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["float32", "uint8"])
+def test_prefetched_batches_are_the_host_batches_from_pinned_memory(cuda_device, wire):
+    """Through the pinned ring, on the copy stream: every batch on the
+    card equals its host batch bit for bit, ids pass through, and each
+    ring slot's buffers are pinned host memory."""
+    from em_adapt_torch.config import DataConfig
+    from em_adapt_torch.data.pipeline import DevicePrefetcher, SyntheticVOC, batch_iterator
+
+    cfg = DataConfig(input_size=(65, 65), num_workers=2, wire_dtype=wire)
+    host = list(batch_iterator(SyntheticVOC(30, seed=2), cfg, batch_size=6, seed=1, epochs=1))
+    with DevicePrefetcher(iter(host), cuda_device, depth=2) as pf:
+        dev = list(pf)
+        assert len(pf._ring) == 3 and all(
+            buf.is_pinned() for slot in pf._ring for buf in slot.values())
+        assert sorted(pf._ring[0]) == ["image", "label"]
+    assert len(dev) == len(host) == 5
+    for h, d in zip(host, dev):
+        assert d["id"] == h["id"]
+        for k in ("image", "label"):
+            assert d[k].device.type == "cuda" and d[k].dtype == torch.from_numpy(h[k]).dtype
+            np.testing.assert_array_equal(d[k].cpu().numpy(), h[k])
+
+
+@pytest.mark.gpu
+def test_consumer_waits_for_a_late_copy(cuda_device):
+    """The hazard test: each batch's copies wait behind about 0.1 s of
+    spinning on the copy stream. The consumer's stream must wait on the
+    copy's event: a read on it right away still gives the host bytes."""
+    g = np.random.default_rng(4)
+    host = [{"image": g.normal(size=(6, 97, 97, 3)).astype(np.float32), "id": [str(i)]}
+            for i in range(3)]
+    pf = _sleepy_prefetcher(200_000_000)(iter(host), cuda_device, depth=2)
+    try:
+        for h in host:
+            d = next(pf)
+            got = (d["image"] * 1.0).cpu().numpy()  # a kernel and a copy on the current stream
+            np.testing.assert_array_equal(got, h["image"])
+    finally:
+        pf.close()
+
+
+@pytest.mark.gpu
+def test_ring_refilled_ahead_of_its_copies_yields_no_mixed_batch(cuda_device):
+    """The source is far faster than the copies (each waits behind about
+    10 ms of spinning on the copy stream) and the consumer takes every
+    batch at once: batch i still arrives as all i, so no slot of the ring
+    was refilled while its copy was pending."""
+    n = 12
+
+    def source():
+        for i in range(n):
+            yield {"image": np.full((6, 129, 129, 3), i, np.float32),
+                   "label": np.full((6, 129, 129, 1), i, np.uint8)}
+
+    with _sleepy_prefetcher(20_000_000)(source(), cuda_device, depth=2) as pf:
+        got = list(pf)
+    torch.cuda.synchronize()
+    assert len(got) == n
+    for i, d in enumerate(got):
+        for k in ("image", "label"):
+            values = torch.unique(d[k]).cpu().tolist()
+            assert values == [i], (i, k, values)
+
+
+@pytest.mark.gpu
+def test_fit_with_the_prefetcher_on_the_card_equals_fit_without(cuda_device, tmp_path):
+    """A small bf16 run with K1, K2 and K3: data.prefetch=2 and
+    data.prefetch=0 give the same losses and final state, bit for bit."""
+    import dataclasses
+
+    from em_adapt_torch.train.state import bitwise_diff
+
+    runs = []
+    for depth in (0, 2):
+        trainer = _small_trainer(cuda_device, tmp_path / str(depth), compute_dtype="bfloat16",
+                                 block1_impl="pallas")
+        trainer.cfg = trainer.cfg.replace(data=dataclasses.replace(trainer.cfg.data,
+                                                                   prefetch=depth))
+        state = trainer.init_state()
+        records = trainer.fit(state, _batches(trainer), num_steps=6)
+        runs.append(([r["loss"] for r in records], state.state_dict()))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 6
+    assert bitwise_diff(runs[0][1], runs[1][1]) == []

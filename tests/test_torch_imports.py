@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of em_adapt_torch (nor
-chip_smoke.py) imports JAX or anything of em_adapt_tpu, and chip_smoke.py
-refuses to run, printing no result, without a card or without the port."""
+chip_smoke.py) imports JAX or anything of em_adapt_tpu, or needs Pillow or
+scipy to be imported, and chip_smoke.py refuses to run, printing no
+result, without a card or without the port."""
 
 import os
 import shutil
@@ -37,6 +38,18 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 15  # every module was imported
+
+
+def test_port_imports_without_pillow_or_scipy():
+    """Pillow and scipy are imported only where files are read or written:
+    every module of the port, and chip_smoke.py, import without them."""
+    probe = 'import sys; sys.modules["PIL"] = sys.modules["scipy"] = None\n' + _PROBE
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 16
 
 
 def _run_smoke(cwd):
