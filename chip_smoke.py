@@ -12,7 +12,11 @@ and drives the port's paths: full-width DeepLab-LargeFOV training at
 E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
 backward K3), batches copied through ``DevicePrefetcher``; the input
 layer (the producer alone, ``fit`` with and without the prefetcher, and
-``convert``, ``train`` and ``eval`` on a VOC-layout tree it writes); and
+``convert``, ``train`` and ``eval`` on a VOC-layout tree it writes); the
+loop at three log cadences on cached batches (wall, busy share, host
+syncs outside the cadences); the training variants through the command
+line (tag warm-up, semi-supervision, LR groups, periodic eval with
+"best", a warm start) and He init in f32 and bf16; and
 the bf16 fixed-resolution evaluation at 321x321, eval batch 6, through
 ``Evaluator.evaluate_fixed`` (K2), then checks what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
@@ -457,6 +461,9 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
     from em_adapt_torch.train.trainer import Trainer
 
     cfg = ExperimentConfig()
+    # A log window a step: the card is synchronized after each, so its
+    # record's wall is the step's, and on_step sees each step's params.
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every_steps=1))
     if bf16:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16",
                                                     block1_impl="pallas"))
@@ -475,9 +482,10 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
         l2 = float(state.model.weight_l2())
     batches = batch_iterator(data, cfg.data, batch_size=cfg.train.batch_size, seed=0)
     snapshot = [p.detach().clone() for p in params]
-    moved = []
+    moved, windows = [], []
 
     def on_step(record):
+        windows.append(record)
         changed = any(not torch.equal(p, q) for p, q in zip(params, snapshot))
         moved.append(changed)
         if changed:
@@ -538,7 +546,8 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
     first = math.log(cfg.model.num_classes) + cfg.optim.weight_decay * l2
     if abs(losses[0] - first) > 1e-3:
         raise AssertionError(f"first loss {losses[0]} != ln(C) + wd*l2 = {first}")
-    step_ms = statistics.median(r["seconds"] for r in records[2:]) * 1e3
+    step_ms = statistics.median(w["window_seconds"] for w in windows[2:]) * 1e3
+    launch_ms = statistics.median(r["seconds"] for r in records[2:]) * 1e3
     flops = conv_flops(cfg.model, cfg.train.batch_size)
     peak_rate = BF16_TENSOR_OPS_PER_S if bf16 else SIMT_OPS_PER_S
     log(f"{tag}: convolutions {flops} FLOP per step (forward and gradients, from shapes): "
@@ -550,7 +559,8 @@ def train(device, steps: int, profile_n: int = 0, bf16: bool = False) -> dict:
         f"{losses[0]:.7f} vs ln(C) + wd*l2 {first:.7f}")
     log(f"{tag}: params moved at steps {[i for i, m in enumerate(moved) if m]}, launches "
         f"{launches}")
-    log(f"{tag}: median {step_ms:.2f} ms/step over steps 2..{steps - 1}, "
+    log(f"{tag}: median {step_ms:.2f} ms/step over steps 2..{steps - 1} (log window wall, one "
+        f"step each, synchronized; the step's launch {launch_ms:.2f} ms of it), "
         f"{result['images_per_s']:.2f} images/s, peak memory {peak} B "
         f"({peak / 2**30:.2f} GiB), fit wall {wall:.2f} s for {steps} steps "
         f"({wall / steps * 1e3:.2f} ms/step with batch fetch and warm-up)")
@@ -637,7 +647,8 @@ def resume(device, card: str) -> dict:
     base = ExperimentConfig()
     cfg = base.replace(
         model=dataclasses.replace(base.model, compute_dtype="bfloat16", block1_impl="pallas"),
-        optim=dataclasses.replace(base.optim, lr_schedule=((1, 1e-4),)))
+        optim=dataclasses.replace(base.optim, lr_schedule=((1, 1e-4),)),
+        train=dataclasses.replace(base.train, log_every_steps=1))  # a log record a step
     bs = cfg.train.batch_size
     data = SyntheticVOC(bs * RESUME_EPOCH, cfg.model.num_classes, seed=0)
     stop_step = RESUME_SIGNAL_AFTER + 1
@@ -652,10 +663,18 @@ def resume(device, card: str) -> dict:
                                                     save_every_steps=RESUME_SAVE_EVERY))
         return Trainer(c, device=device, steps_per_epoch=RESUME_EPOCH)
 
+    windows = []  # every run's log records, one a step: the walls of median_ms
+
     def run(trainer, state, start: int = 0, log_fn=None) -> list[dict]:
         batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0, start_step=start)
+
+        def logged(record):
+            windows.append(record)
+            if log_fn is not None:
+                log_fn(record)
+
         try:
-            return trainer.fit(state, batches, num_steps=RESUME_STEPS, log_fn=log_fn)
+            return trainer.fit(state, batches, num_steps=RESUME_STEPS, log_fn=logged)
         finally:
             batches.close()
 
@@ -669,16 +688,21 @@ def resume(device, card: str) -> dict:
         shutil.rmtree(trainer.cfg.checkpoint.save_dir)
         return records, to_host(state.state_dict())
 
-    def median_ms(records) -> float:
-        return statistics.median(r["seconds"] for r in records[2:]) * 1e3
+    def median_ms() -> float:
+        """Median wall of a step (its log window, synchronized) over the
+        runs since the last call (A twice, B and its resumed part), each
+        fresh run's first two steps left out."""
+        walls = [w["window_seconds"] for w in windows if w["step"] > 2]
+        windows.clear()
+        return statistics.median(walls) * 1e3
 
     def run_b():
         """Run B to the SIGTERM, then resumed in a fresh Trainer to the end."""
         trainer = trainer_for("b")
         state = trainer.init_state()
 
-        def preempt(record):
-            if record["step"] == RESUME_SIGNAL_AFTER:
+        def preempt(record):  # a record's step counts the steps done
+            if record["step"] == RESUME_SIGNAL_AFTER + 1:
                 signal.raise_signal(signal.SIGTERM)
 
         first = run(trainer, state, log_fn=preempt)
@@ -703,7 +727,7 @@ def resume(device, card: str) -> dict:
         listed = {}
 
         def watch(record):
-            if record["step"] == 8:  # "norm" 8 was saved right after step 7
+            if record["step"] == 9:  # step 8 ran; "norm" 8 was saved right after step 7
                 trainer.checkpointer.wait()
                 listed["norm"] = trainer.checkpointer.all_steps("norm")
 
@@ -739,7 +763,7 @@ def resume(device, card: str) -> dict:
             equal = not (diff or loss_steps or b_diff or b_loss_steps)
             levels[level] = dict(equal=equal, leaves=len(diff), loss_steps=loss_steps,
                                  max_param_gap=gap, b_leaves=len(b_diff),
-                                 b_loss_steps=b_loss_steps, step_ms=median_ms(rec1 + rec2))
+                                 b_loss_steps=b_loss_steps, step_ms=median_ms())
             log(f"{tag}: under {level} settings, two uninterrupted {RESUME_STEPS}-step runs A "
                 f"{'agree' if not (diff or loss_steps) else 'DIFFER'} ({len(diff)} leaves of the "
                 f"state differ, losses at steps {loss_steps}, max |param gap| {gap:.3e}); run B "
@@ -823,12 +847,12 @@ def resume(device, card: str) -> dict:
 #: prefetcher, in turns (INPUT_DEPTHS), each followed by one step and then
 #: INPUT_PROFILED steps under torch.profiler; the producer alone over
 #: INPUT_STEPS batches.
-INPUT_STEPS = 20
+INPUT_STEPS = 12
 INPUT_PROFILED = 3
 INPUT_DEPTHS = (0, 2, 2, 0)
 #: The VOC-layout tree of the input phase: VOC's image size and JPEG
 #: quality, split into "train" and "val".
-VOC_TREE = dict(train=48, val=12, size=(500, 375), quality=90)
+VOC_TREE = dict(train=24, val=6, size=(500, 375), quality=90)
 
 
 def producer_ms(dataset, data_cfg, batch_size: int, batches: int, train: bool = True):
@@ -898,6 +922,9 @@ def input_phase(device, card: str) -> dict:
                 checkpoint=CheckpointConfig(save_dir=root, save_every_steps=0,
                                             snapshot_on_lr_drop=False))
             trainer = Trainer(cfg, device=device, steps_per_epoch=len(data) // bs)
+            # The profiled steps' hooks need a log record a step.
+            logging = Trainer(cfg.replace(train=dataclasses.replace(cfg.train, log_every_steps=1)),
+                              device=device, steps_per_epoch=len(data) // bs)
             state = trainer.init_state()
             batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0)
             # Device activity only: tracing the host's operators too would slow
@@ -905,11 +932,11 @@ def input_phase(device, card: str) -> dict:
             prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
             window = []
 
-            def profiled(record):
-                if record["step"] == INPUT_STEPS:  # the second fit's first step is cold
+            def profiled(record):  # a record's step counts the steps done
+                if record["step"] == INPUT_STEPS + 1:  # the second fit's first step is cold
                     window.append(time.perf_counter())
                     prof.start()
-                elif record["step"] == steps - 1:
+                elif record["step"] == steps:
                     prof.stop()
                     window.append(time.perf_counter())
 
@@ -920,7 +947,7 @@ def input_phase(device, card: str) -> dict:
                 records = trainer.fit(state, batches, num_steps=INPUT_STEPS)
                 wall = time.perf_counter() - t0
                 launches = (k1.launches, k23.launches, k23.bwd_launches)
-                more = trainer.fit(state, batches, num_steps=steps, log_fn=profiled)
+                more = logging.fit(state, batches, num_steps=steps, log_fn=profiled)
             finally:
                 batches.close()
             records += more
@@ -952,15 +979,15 @@ def input_phase(device, card: str) -> dict:
             win_ms = (window[1] - window[0]) * 1e3 / INPUT_PROFILED
             timed = records[2:INPUT_STEPS]
             run = dict(depth=depth, wall_s=wall,
-                       step_ms=statistics.median(r["seconds"] for r in timed) * 1e3,
+                       launch_ms=statistics.median(r["seconds"] for r in timed) * 1e3,
                        wait_ms=statistics.median(r["wait_seconds"] for r in timed) * 1e3,
                        first_ms=(records[0]["seconds"] + records[0]["wait_seconds"]) * 1e3,
                        htod_ms=sum(r[0] for r in htod), busy_ms=busy, window_ms=win_ms)
             runs.append(run)
             log(f"{tag}: prefetch={depth}: fit wall {wall:.3f} s for {INPUT_STEPS} steps "
-                f"({wall / INPUT_STEPS * 1e3:.2f} ms/step; step 0 with its wait "
-                f"{run['first_ms']:.2f} ms); over steps 2..{INPUT_STEPS - 1} median step "
-                f"{run['step_ms']:.2f} ms, median wait for the batch {run['wait_ms']:.3f} ms; "
+                f"({wall / INPUT_STEPS * 1e3:.2f} ms/step; step 0's launch with its wait "
+                f"{run['first_ms']:.2f} ms); over steps 2..{INPUT_STEPS - 1} median launch "
+                f"{run['launch_ms']:.2f} ms, median wait for the batch {run['wait_ms']:.3f} ms; "
                 f"K1, K2, K3 launches {launches}; profiled steps {INPUT_STEPS + 1}..{steps - 1}: "
                 f"{win_ms:.2f} ms/step wall, device busy {busy:.2f} ms/step "
                 f"({100 * busy / win_ms:.1f}%, sum of device times), HtoD "
@@ -976,7 +1003,7 @@ def input_phase(device, card: str) -> dict:
                for d, rs in by.items()}
     for d, m in sorted(summary.items()):
         log(f"{tag}: prefetch={d}, median of {len(by[d])} runs: fit wall {m['wall_s']:.3f} s "
-            f"({m['wall_s'] / INPUT_STEPS * 1e3:.2f} ms/step), step {m['step_ms']:.2f} ms, wait "
+            f"({m['wall_s'] / INPUT_STEPS * 1e3:.2f} ms/step), launch {m['launch_ms']:.2f} ms, wait "
             f"{m['wait_ms']:.3f} ms, HtoD {m['htod_ms']:.3f} ms/step, busy "
             f"{100 * m['busy_ms'] / m['window_ms']:.1f}% ({card})")
     return dict(producer=producer, runs=runs, summary=summary)
@@ -1070,16 +1097,23 @@ def voc_tree_phase(device, card: str) -> dict:
                 "model.compute_dtype=bfloat16", "model.block1_impl=pallas",
                 f"checkpoint.save_dir={os.path.join(root, 'saver')}"]
         k1.launches = k23.launches = k23.bwd_launches = 0
+        jsonl = os.path.join(root, "train.jsonl")
         t0 = time.perf_counter()
-        lines = run("train", "--steps", "10", *args)
+        run("train", "--steps", "10", "--log-jsonl", jsonl, "train.log_every_steps=1", *args)
         train_s = time.perf_counter() - t0
-        launches = (k1.launches, k23.launches, k23.bwd_launches)
-        records = [json.loads(line) for line in lines if line.startswith("{")]
+        with open(jsonl) as f:
+            records = [r for r in map(json.loads, f) if "loss" in r]
         losses = [r["loss"] for r in records]
-        if [r["step"] for r in records] != list(range(10)) or launches != (10, 10, 10) or not all(
-                math.isfinite(v) for v in losses):
-            raise AssertionError(f"{tag}: train ran steps {[r['step'] for r in records]}, "
-                                 f"launches {launches}, losses {losses}")
+        in_steps = tuple(sum(r[k] for r in records) for k in
+                         ("estep_launches", "block1_fwd_launches", "block1_bwd_launches"))
+        # K1 also runs in the train command's E-step calibration, before the steps.
+        launches = (k1.launches, k23.launches, k23.bwd_launches)
+        calib = k1.launches - in_steps[0]
+        if ([r["step"] for r in records] != list(range(1, 11)) or in_steps != (10, 10, 10)
+                or launches[1:] != (10, 10) or calib <= 0
+                or not all(isinstance(v, float) and math.isfinite(v) for v in losses)):
+            raise AssertionError(f"{tag}: train logged steps {[r['step'] for r in records]}, "
+                                 f"launches {launches} ({in_steps} in the steps), losses {losses}")
         k23.launches = 0
         t0 = time.perf_counter()
         lines = run("eval", "--fixed-size", *args)
@@ -1091,14 +1125,291 @@ def voc_tree_phase(device, card: str) -> dict:
             raise AssertionError(f"{tag}: eval printed {lines}, K2 launched {k23.launches} "
                                  f"times")
         log(f"{tag}: `train --steps 10` on the tree: {train_s:.2f} s (its checkpoint included), "
-            f"losses {[round(v, 6) for v in losses]}, K1, K2, K3 launches {launches}, median "
-            f"step {statistics.median(r['seconds'] for r in records[2:]) * 1e3:.2f} ms, median "
-            f"wait {statistics.median(r['wait_seconds'] for r in records[2:]) * 1e3:.3f} ms; "
+            f"losses {[round(v, 6) for v in losses]}, K1, K2, K3 launches {in_steps} in the "
+            f"steps and {calib} of K1 in the E-step calibration "
+            f"({records[0]['estep_us_per_image_calib']} us/image), median step (a log window "
+            f"each) {statistics.median(r['window_seconds'] for r in records[2:]) * 1e3:.2f} ms, "
+            f"median wait {statistics.median(r['wait_seconds'] for r in records[2:]) * 1e3:.3f} ms; "
             f"`eval --fixed-size` on its {VOC_TREE['val']} val images: {eval_s:.2f} s, K2 "
             f"launches {k23.launches}, mIoU {miou:.4f} ({card})")
         return dict(producer_ms=med, losses=losses, miou=miou)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+#: The loop phase: LOOP_STEPS steps on LOOP_BATCHES host batches made
+#: beforehand and cycled, at each log cadence of LOOP_CADENCES, then
+#: LOOP_PROFILED more steps under a device-only torch.profiler trace.
+LOOP_STEPS, LOOP_BATCHES, LOOP_CADENCES, LOOP_PROFILED = 30, 6, (1, 10, 30), 6
+#: Frames of ``train/trainer.py::Trainer.fit`` where the loop waits for the
+#: card on purpose: the log window's sync, and a checked save's host copy.
+CADENCE_FRAMES = ("full_sync", "checked_save")
+
+
+class SyncCounter:
+    """Counts the host syncs that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports inside the block, split into those at a cadence of the loop
+    (a frame of CADENCE_FRAMES on the stack) and the others, each of those
+    by the innermost frame of the port."""
+
+    def __enter__(self):
+        import collections
+        import traceback
+        import warnings
+
+        import torch
+
+        self.cadence, self.others = 0, collections.Counter()
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return
+            stack = traceback.extract_stack()[:-1]
+            if any(f.name in CADENCE_FRAMES for f in stack):
+                self.cadence += 1
+            else:
+                ours = [f for f in stack if "em_adapt_torch" in f.filename]
+                where = ours[-1] if ours else stack[-1]
+                self.others[f"{os.path.relpath(where.filename, ROOT)}:{where.lineno} "
+                            f"{where.name}"] += 1
+
+        warnings.showwarning = show
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        self._warnings.__exit__(*exc)
+        return False
+
+
+def loop_phase(device, card: str) -> dict:
+    """Phase "loop bf16": ``Trainer.fit`` at the reference recipe in bf16
+    (K1, K2, K3), on LOOP_BATCHES host batches made beforehand and cycled
+    (the producer is out of the measurement; the prefetcher still copies
+    each batch), for LOOP_STEPS steps at ``train.log_every_steps`` 1, 10
+    and 30 with ``data.prefetch=2``, after a warm-up run. Reports the wall
+    per step of every log window, the host syncs outside the cadences
+    (``SyncCounter``), and, from LOOP_PROFILED more steps under a
+    device-only trace, the device's time per step and its busy share of
+    each cadence's untraced wall. Losses and state must be bit-equal
+    across the cadences, with K1, K2 and K3 once a step."""
+    import dataclasses
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from em_adapt_torch.config import CheckpointConfig, ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.train.checkpoint import to_host
+    from em_adapt_torch.train.state import bitwise_diff
+    from em_adapt_torch.train.trainer import Trainer
+
+    tag = "loop bf16"
+    base = ExperimentConfig()
+    bs = base.train.batch_size
+    it = batch_iterator(SyntheticVOC(bs * LOOP_BATCHES, base.model.num_classes, seed=0),
+                        base.data, batch_size=bs, seed=0)
+    try:
+        cached = [next(it) for _ in range(LOOP_BATCHES)]
+    finally:
+        it.close()
+
+    def trainer_for(log_every: int):
+        cfg = base.replace(
+            model=dataclasses.replace(base.model, compute_dtype="bfloat16", block1_impl="pallas"),
+            data=dataclasses.replace(base.data, prefetch=2),
+            train=dataclasses.replace(base.train, log_every_steps=log_every),
+            checkpoint=CheckpointConfig(save_dir=os.path.join(ROOT, "build", "loop-unused"),
+                                        save_every_steps=0, snapshot_on_lr_drop=False))
+        return Trainer(cfg, device=device, steps_per_epoch=LOOP_BATCHES)
+
+    def stream(n: int):
+        return itertools.islice(itertools.cycle(cached), n)
+
+    warm = trainer_for(3)
+    warm.fit(warm.init_state(), stream(3), num_steps=3)
+    runs, first = {}, None
+    for every in LOOP_CADENCES:
+        trainer = trainer_for(every)
+        state = trainer.init_state()
+        windows = []
+        with SyncCounter() as syncs:
+            t0 = time.perf_counter()
+            records = trainer.fit(state, stream(LOOP_STEPS), num_steps=LOOP_STEPS,
+                                  log_fn=windows.append)
+            wall = time.perf_counter() - t0
+        losses = [r["loss"] for r in records]
+        if len(records) != LOOP_STEPS or not all(math.isfinite(v) for v in losses) or any(
+                (r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                != (1, 1, 1) for r in records):
+            raise AssertionError(f"{tag}: log_every={every}: {len(records)} steps, losses "
+                                 f"{losses}, launches not once a step")
+        host = to_host(state.state_dict())
+        if first is None:
+            first = dict(losses=losses, state=host)
+        elif losses != first["losses"] or bitwise_diff(host, first["state"]):
+            raise AssertionError(f"{tag}: log_every={every} differs from log_every="
+                                 f"{LOOP_CADENCES[0]} in losses or state")
+        per_window = [w["window_seconds"] * 1e3 / w["window_steps"] for w in windows]
+        runs[every] = dict(wall_ms=wall * 1e3 / LOOP_STEPS, windows_ms=per_window,
+                           steady_ms=statistics.median(per_window[1:] or per_window),
+                           launch_ms=statistics.median(r["seconds"] for r in records[2:]) * 1e3,
+                           syncs_cadence=syncs.cadence, syncs_other=dict(syncs.others))
+        del host
+    trainer = trainer_for(LOOP_PROFILED)
+    state = trainer.init_state()
+    trainer.fit(state, stream(2), num_steps=2)
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+    with prof:
+        trainer.fit(state, stream(LOOP_PROFILED), num_steps=2 + LOOP_PROFILED)
+    device_ms = sum(r[0] for r in device_rows(prof, LOOP_PROFILED))
+    for every, r in runs.items():
+        r["busy"] = device_ms / r["steady_ms"]
+        log(f"{tag}: log_every_steps={every}: wall {r['wall_ms']:.2f} ms a step over the "
+            f"{LOOP_STEPS} steps; per log window (ms a step) "
+            f"{[round(w, 2) for w in r['windows_ms']]}; steady {r['steady_ms']:.2f} ms a step "
+            f"(median of the windows after the first, or the only one); median launch "
+            f"{r['launch_ms']:.2f} ms; device busy {100 * r['busy']:.1f}% of the steady wall; "
+            f"host syncs {r['syncs_cadence']} at the cadence, {sum(r['syncs_other'].values())} "
+            f"elsewhere ({r['syncs_other'] or 'none'}) ({card})")
+    log(f"{tag}: device time {device_ms:.2f} ms a step over {LOOP_PROFILED} traced steps; all "
+        f"{len(LOOP_CADENCES)} cadences end on the same state and {LOOP_STEPS} losses bit for "
+        f"bit, K1, K2, K3 once a step ({card})")
+    others = {k: v for r in runs.values() for k, v in r["syncs_other"].items()}
+    if others:
+        raise AssertionError(f"{tag}: host syncs outside the cadences: {others}")
+    return dict(runs=runs, device_ms=device_ms)
+
+
+#: The variants phase: VARIANT_STEPS steps of each variant through the
+#: train command; the He-init runs: HE_STEPS steps in f32 and in bf16.
+VARIANT_STEPS, HE_STEPS = 10, 20
+
+
+def variants_phase(device, card: str) -> dict:
+    """Phase "variants bf16": the train command at full width in bf16 (K1,
+    K2, K3) for VARIANT_STEPS steps each, a log record a step: tag warm-up
+    for 5 steps then EM (K1 only on the EM steps), ``--strong-fraction
+    0.5``, ``optim.lr_multipliers=true``, ``train.eval_every_steps=10`` on
+    12 synthetic val images (writes "best" and best_metric.json), and a
+    warm start from that "best". Every loss must be finite. Then He init
+    at the reference LR in f32 and in bf16 through ``Trainer.fit`` for
+    HE_STEPS steps: the losses logged, and the step at which the watchdog
+    stops a run whose loss is no longer finite (a measurement of the
+    recipe: that stop is recorded, not a failure)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from em_adapt_torch.__main__ import main as cli
+    from em_adapt_torch.config import CheckpointConfig, ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.trainer import Trainer
+
+    tag = "variants bf16"
+    root = tempfile.mkdtemp(prefix="variants-", dir=os.path.join(ROOT, "build"))
+    bs = ExperimentConfig().train.batch_size
+    options = ["--synthetic", str(bs * VARIANT_STEPS), "--steps", str(VARIANT_STEPS)]
+    overrides = ["model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+                 "train.log_every_steps=1"]
+    best_dir = os.path.join(root, "eval")
+    # name: (options, overrides, warm-up steps)
+    variants = {
+        "warm-up": ([], ["train.tag_warmup_steps=5"], 5),
+        "strong": (["--strong-fraction", "0.5"], [], 0),
+        "lr-groups": ([], ["optim.lr_multipliers=true"], 0),
+        "eval": (["--synthetic-val", "12"], ["train.eval_every_steps=10"], 0),
+        "warm-start": (["--warm-start", best_dir, "--warm-start-tag", "best"], [], 0),
+    }
+    results = {}
+    try:
+        for name, (extra_options, extra, warmup) in variants.items():
+            save_dir = best_dir if name == "eval" else os.path.join(root, name)
+            jsonl = os.path.join(root, f"{name}.jsonl")
+            out = io.StringIO()
+            k1.launches = k23.launches = k23.bwd_launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli(["train", *options, *extra_options, "--log-jsonl", jsonl, *overrides,
+                          *extra, f"checkpoint.save_dir={save_dir}"])
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"{tag}: {name} exited {rc}: {out.getvalue()[-2000:]}")
+            with open(jsonl) as f:
+                logged = [json.loads(line) for line in f]
+            train = [r for r in logged if "loss" in r]
+            evals = [(r["step"], r["val_metric"]) for r in logged if "val_metric" in r]
+            losses = [r["loss"] for r in train]
+            per_step = [(r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                        for r in train]
+            want = [(0 if i < warmup else 1, 1, 1) for i in range(VARIANT_STEPS)]
+            if (len(train) != VARIANT_STEPS or per_step != want
+                    or not all(isinstance(v, float) and math.isfinite(v) for v in losses)):
+                raise AssertionError(f"{tag}: {name}: losses {losses}, launches a step "
+                                     f"{per_step}, expected {want}")
+            if name == "eval":
+                with open(os.path.join(best_dir, "best_metric.json")) as f:
+                    side = json.load(f)
+                best = sorted(os.listdir(os.path.join(best_dir, "best")))
+                if ([s for s, _ in evals] != list(range(10, VARIANT_STEPS + 1, 10)) or not best
+                        or side["metric"] != max(v for _, v in evals)):
+                    raise AssertionError(f"{tag}: eval logged {evals}, best_metric.json {side}, "
+                                         f"'best' steps {best}")
+            if name == "warm-start" and "warm start: params from" not in out.getvalue():
+                raise AssertionError(f"{tag}: warm-start printed {out.getvalue()[:500]}")
+            results[name] = dict(losses=losses, evals=evals, seconds=seconds)
+            log(f"{tag}: {name} ({' '.join(extra_options + extra)}): {VARIANT_STEPS} steps in "
+                f"{seconds:.2f} s "
+                f"(the command's own, model init and checkpoint included), losses "
+                f"{[round(v, 5) for v in losses]}; K1, K2, K3 a step "
+                f"{sorted(set(per_step))} (K1 0 on the {warmup} warm-up steps); all K1 launches "
+                f"{k1.launches} (E-step calibration included), K2 {k23.launches} (eval "
+                f"included), K3 {k23.bwd_launches}"
+                + (f"; val mIoU (step, mIoU) {[(t, round(v, 6)) for t, v in evals]}, 'best' at "
+                   f"{best}, best_metric.json {side}"
+                   if name == "eval" else "") + f" ({card})")
+
+        base = ExperimentConfig()
+        data = SyntheticVOC(bs * HE_STEPS, base.model.num_classes, seed=0)
+        for dtype in ("float32", "bfloat16"):
+            cfg = base.replace(
+                model=dataclasses.replace(base.model, init_scheme="he", compute_dtype=dtype,
+                                          block1_impl="pallas" if dtype == "bfloat16" else "xla"),
+                train=dataclasses.replace(base.train, log_every_steps=1),
+                checkpoint=CheckpointConfig(save_dir=os.path.join(root, f"he-{dtype}"),
+                                            save_every_steps=0, snapshot_on_lr_drop=False))
+            trainer = Trainer(cfg, device=device, steps_per_epoch=HE_STEPS)
+            logged, stopped = [], None
+            batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0)
+            try:
+                trainer.fit(trainer.init_state(), batches, num_steps=HE_STEPS,
+                            log_fn=logged.append)
+            except RuntimeError as e:
+                if not str(e).startswith("training unhealthy"):
+                    raise
+                stopped = str(e)
+            finally:
+                batches.close()
+            losses = [r["loss"] for r in logged]
+            results[f"he-{dtype}"] = dict(losses=losses, stopped=stopped)
+            log(f"{tag}: He init, {dtype}, reference LR {cfg.optim.base_lr}: losses of steps "
+                f"0-{len(losses) - 1} {[round(v, 5) for v in losses]}; "
+                f"{stopped or f'finite through step {HE_STEPS - 1}'} ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return results
 
 
 def grads_bf16(device) -> dict:
@@ -1786,6 +2097,15 @@ def evaluate(device) -> dict:
                 prefetched_images_per_s=EVAL_IMAGES / prefetched_wall, agree=agree)
 
 
+def phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, with its seconds logged after it."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--quick", action="store_true", help="stop after the kernel checks")
@@ -1826,16 +2146,16 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    k1_result = check_estep(device)
-    k2_result = check_block1(device, timed=not args.quick)
-    k3_result = check_block1_bwd(device, timed=not args.quick)
-    parts_result = check_block1_bwd_parts(device, timed=not args.quick)
+    k1_result = phase("K1 check", check_estep, device)
+    k2_result = phase("K2 check", check_block1, device, timed=not args.quick)
+    k3_result = phase("K3 check", check_block1_bwd, device, timed=not args.quick)
+    parts_result = phase("K3 parts", check_block1_bwd_parts, device, timed=not args.quick)
     if args.quick:
         return 0
     check_model_small_input(device)
-    train_result = train(device, STEPS, args.profile)
+    train_result = phase("train f32", train, device, STEPS, args.profile)
     parts.launches = 0
-    bf16_result = train(device, STEPS, args.profile, bf16=True)
+    bf16_result = phase("train bf16", train, device, STEPS, args.profile, bf16=True)
     if parts.launches:
         raise AssertionError(f"the bf16 training run launched {parts.launches} K3 variants")
     in_step, t6 = bf16_result["k1_in_step"], k1_result["timing"][6]
@@ -1847,12 +2167,14 @@ def main(argv=None) -> int:
         f"image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, profiler "
         f"{measured(t6['prof_ms'], 4, 'ms')}, fixed {measured(t6['fixed_ms'], 4, 'ms')}, "
         f"{measured(t6['visit_us'], 3, 'us')} a visit, present visits per image {t6['present']}")
-    resume(device, card)
-    input_phase(device, card)
-    voc_tree_phase(device, card)
-    grads_bf16(device)
-    time_block1_train(device)
-    eval_result = evaluate(device)
+    phase("resume bf16", resume, device, card)
+    phase("input bf16", input_phase, device, card)
+    phase("input VOC", voc_tree_phase, device, card)
+    phase("loop bf16", loop_phase, device, card)
+    phase("variants bf16", variants_phase, device, card)
+    phase("grads bf16", grads_bf16, device)
+    phase("block1 timing", time_block1_train, device)
+    eval_result = phase("eval", evaluate, device)
     kernels = [{
         "name": "estep",
         "route": "cuda",

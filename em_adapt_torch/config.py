@@ -96,6 +96,8 @@ class OptimConfig:
     weight_decay: float = 1e-5
     accum_steps: int = 5
     lr_schedule: tuple[tuple[int, float], ...] = ((10, 1e-4), (20, 1e-5), (30, 1e-6))
+    #: Caffe LR groups (bias x2, fc8 weight x10, fc8 bias x20), the
+    #: paper's recipe; off for parity with the reference's code.
     lr_multipliers: bool = False
 
 
@@ -122,6 +124,43 @@ class TrainConfig:
     #: (reference deeplab.py:291).
     epochs: int = 40
     seed: int = 0
+    #: ``Trainer.fit`` waits for the card and hands ``log_fn`` a record
+    #: every this many steps (reference deeplab.py:273); 0: never.
+    log_every_steps: int = 500
+    #: Run validation every N steps and keep a "best"-mIoU checkpoint (the
+    #: reference created a "best" saver but never used it, network.py:102).
+    #: None disables periodic eval.
+    eval_every_steps: int | None = None
+    #: Protocol of the periodic eval: "fixed" (at the training resolution).
+    #: "voc" (per image at its original resolution) is ROADMAP.md Queue 1
+    #: item 7.
+    eval_protocol: str = "fixed"
+    #: Accepted so that one config file drives both packages, and not
+    #: ported: levers of the JAX package's TPU dispatch (donated buffers,
+    #: K steps fused into one dispatch, the hardware PRNG). The port runs
+    #: single steps, which give the same update.
+    donate_state: bool = True
+    macro_steps: int = 1
+    rng_impl: str = "threefry"
+    #: Time the deployed E-step (µs/image at this run's score-map shape)
+    #: once at train start and stamp it into every train record.
+    calibrate_estep: bool = True
+    #: Train the first N steps on the weak-tag classification loss
+    #: (``train/trainer.py::tag_classification_loss``: LSE-pooled logits
+    #: against the image-level tags) instead of the EM objective, then
+    #: switch. 0 = off (reference parity: the reference starts EM from a
+    #: classification-pretrained init.npy). From random init it makes that
+    #: missing prior from the same weak tags.
+    tag_warmup_steps: int = 0
+    #: Label smoothing of the warm-up's tag BCE: targets in [eps, 1-eps]
+    #: give it a finite minimizer (pooled logit ±logit(1-eps), about ±2.9
+    #: at 0.05), so the logits cannot run away during the warm-up.
+    tag_warmup_smoothing: float = 0.05
+    #: LSE pooling sharpness r: (1/r)(logsumexp(r·x) − log HW), the mean
+    #: at r→0 and the max at r→∞. At r=1 a spatially constant map already
+    #: satisfies the tags; sharper pooling makes peaked maps the cheap
+    #: solution.
+    tag_warmup_pool_r: float = 4.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +181,9 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
+    #: Images flagged ``is_strong`` in a batch train on their true masks
+    #: (void pixels masked out) instead of the E-step's labels.
+    semi_supervised: bool = False
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -158,8 +200,8 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
          "Queue 1 item 4 (the native E-step binding)"),
         (train and cfg.estep.method == "fixed", "estep.method='fixed'",
          "Queue 1 item 3 (EM-Fixed)"),
-        (train and cfg.optim.lr_multipliers, "optim.lr_multipliers=True",
-         "Queue 1 item 2 (2d, the training variants)"),
+        (train and cfg.train.eval_protocol == "voc", "train.eval_protocol='voc'",
+         "Queue 1 item 7 (the VOC protocol and the CRF)"),
         (not train and cfg.eval.use_crf, "eval.use_crf=True",
          "Queue 1 item 7 (the VOC protocol and the CRF)"),
     ]
@@ -183,6 +225,10 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
     if cfg.estep.impl not in ("auto", "jax", "pallas"):
         raise ValueError(
             f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax' or 'pallas'"
+        )
+    if cfg.train.eval_protocol != "fixed":
+        raise ValueError(
+            f"train.eval_protocol={cfg.train.eval_protocol!r}: expected 'fixed' or 'voc'"
         )
 
 

@@ -34,9 +34,8 @@ class VOCSegmentation:
     Pillow is imported when an image is read.
 
     ``is_strong`` flags the ids listed in ``strong_list`` (masks that are
-    real pixel annotations). ``batch_iterator`` does not read it yet: the
-    batches' ``"is_strong"`` key and the CLI's ``--strong-list`` come with
-    semi-supervision, ROADMAP.md Queue 1 item 2 (2d).
+    real pixel annotations): with ``semi_supervised`` those images train on
+    their masks instead of the E-step's labels.
     """
 
     def __init__(self, cfg: DataConfig, category: str = "train", strong_list: str | None = None):
@@ -67,13 +66,17 @@ class VOCSegmentation:
 
 class SyntheticVOC:
     """Deterministic fake VOC-shaped data (variable image sizes like the
-    real corpus, a void band like VOC object boundaries)."""
+    real corpus, a void band like VOC object boundaries). About
+    ``strong_fraction`` of the images are flagged ``is_strong``, drawn
+    from ``seed`` as the JAX package draws them."""
 
-    def __init__(self, n: int = 64, num_classes: int = 21, seed: int = 0):
+    def __init__(self, n: int = 64, num_classes: int = 21, seed: int = 0,
+                 strong_fraction: float = 0.0):
         self.n = n
         self.num_classes = num_classes
         self.seed = seed
         self.ids = [f"synth_{i:06d}" for i in range(n)]
+        self.is_strong = np.random.default_rng(seed).uniform(size=n) < strong_fraction
 
     def __len__(self) -> int:
         return self.n
@@ -99,7 +102,10 @@ def batch_iterator(
     num_workers: int | None = None,
     start_step: int = 0,
 ) -> Iterator[dict]:
-    """Yield batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list}.
+    """Yield batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list},
+    and "is_strong" [B] bool whenever the dataset flags any image strong
+    (the whole dataset decides, so every batch has the same keys; pad rows
+    are False).
 
     Training (``train=True``): each epoch's order is a seeded permutation;
     each sample's augmentation draws from its own child generator keyed by
@@ -144,6 +150,8 @@ def batch_iterator(
             lab_p = resize_nearest_np(lab_p, tuple(cfg.train_label_size))
         return img_p, lab_p
 
+    strong = getattr(dataset, "is_strong", None)
+    include_strong = strong is not None and bool(strong.any())
     pool = cf.ThreadPoolExecutor(max_workers=max(1, num_workers))
     try:
         while epochs is None or epoch < epochs:
@@ -160,17 +168,22 @@ def batch_iterator(
                     continue
                 results = list(pool.map(lambda i: load_one(epoch, int(i)), idxs))
                 ids = [dataset.ids[int(i)] for i in idxs]
+                flags = [bool(strong[int(i)]) for i in idxs] if include_strong else []
                 if len(idxs) < batch_size:
                     # -1 rows of the JAX package: a zero image, an all-void label.
                     pad = batch_size - len(idxs)
                     img0, lab0 = results[0]
                     results += [(np.zeros_like(img0), np.full_like(lab0, 255))] * pad
                     ids += ["__pad__"] * pad
-                yield {
+                    flags += [False] * pad
+                out = {
                     "image": np.stack([r[0] for r in results]),
                     "label": np.stack([r[1] for r in results]),
                     "id": ids,
                 }
+                if include_strong:
+                    out["is_strong"] = np.array(flags)
+                yield out
             epoch += 1
     finally:
         pool.shutdown(wait=False, cancel_futures=True)

@@ -3,10 +3,15 @@
 TF1 maps output index i to source coordinate ``i * (in/out)`` computed in
 float32. The grids are built in numpy float32 (an on-device division
 could round differently), so the nearest resize, which feeds the E-step's
-tags, is bit-exact (reference deeplab.py:110, network.py:40).
+tags, is bit-exact (reference deeplab.py:110, network.py:40). A grid is
+copied to its device once per (sizes, device), from pinned memory without
+waiting, and kept: a copy from pageable memory each call would make every
+training step wait for the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -17,8 +22,31 @@ def _src_coords(out_size: int, in_size: int) -> np.ndarray:
     return np.arange(out_size, dtype=np.float32) * scale
 
 
-def _index(idx: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(idx.astype(np.int64), device=device)
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _to_device(idx.astype(np.int64), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_grid(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+    return _index(np.minimum(np.floor(_src_coords(out_size, in_size)), in_size - 1), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_grid(out_size: int, in_size: int, device: torch.device):
+    """(lo, hi, weight) of one axis: lo = floor(src), hi = min(lo+1, in-1),
+    weight = src - lo."""
+    src = _src_coords(out_size, in_size)
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    hi = np.minimum(lo + 1, in_size - 1)
+    t = (src - lo.astype(np.float32)).astype(np.float32)
+    return _index(lo, device), _index(hi, device), _to_device(t, device)
 
 
 def resize_nearest_tf(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -29,9 +57,8 @@ def resize_nearest_tf(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
         x = x[None]
     _, in_h, in_w, _ = x.shape
     out_h, out_w = size
-    ys = np.minimum(np.floor(_src_coords(out_h, in_h)).astype(np.int64), in_h - 1)
-    xs = np.minimum(np.floor(_src_coords(out_w, in_w)).astype(np.int64), in_w - 1)
-    out = x.index_select(1, _index(ys, x.device)).index_select(2, _index(xs, x.device))
+    out = x.index_select(1, _nearest_grid(out_h, in_h, x.device))
+    out = out.index_select(2, _nearest_grid(out_w, in_w, x.device))
     return out[0] if squeeze else out
 
 
@@ -45,16 +72,8 @@ def resize_bilinear_tf(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     _, in_h, in_w, _ = x.shape
     out_h, out_w = size
     x = x.to(torch.float32)
-
-    def axis(out_size, in_size):
-        src = _src_coords(out_size, in_size)
-        lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
-        hi = np.minimum(lo + 1, in_size - 1)
-        t = (src - lo.astype(np.float32)).astype(np.float32)
-        return _index(lo, x.device), _index(hi, x.device), torch.as_tensor(t, device=x.device)
-
-    y_lo, y_hi, ty = axis(out_h, in_h)
-    x_lo, x_hi, tx = axis(out_w, in_w)
+    y_lo, y_hi, ty = _bilinear_grid(out_h, in_h, x.device)
+    x_lo, x_hi, tx = _bilinear_grid(out_w, in_w, x.device)
     top_rows, bot_rows = x.index_select(1, y_lo), x.index_select(1, y_hi)
     tl, tr = top_rows.index_select(2, x_lo), top_rows.index_select(2, x_hi)
     bl, br = bot_rows.index_select(2, x_lo), bot_rows.index_select(2, x_hi)

@@ -260,11 +260,12 @@ def variant_reports(paths: dict[str, Path]) -> dict[str, dict]:
     """Per variant: its library, ptxas's report and its SASS's HMMA count."""
     from em_adapt_torch.utils import build
 
+    with cf.ThreadPoolExecutor(len(paths)) as pool:  # one cuobjdump per library, together
+        hmma = dict(zip(paths, pool.map(lambda p: build.sass_count(p, "HMMA"), paths.values())))
     reports = {}
     for name, path in paths.items():
         log = build.build_logs.get(("block1_bwd", VARIANTS[name].defines), "")
-        reports[name] = dict(library=path.name, **ptxas_report(log),
-                             hmma=build.sass_count(path, "HMMA"))
+        reports[name] = dict(library=path.name, **ptxas_report(log), hmma=hmma[name])
     return reports
 
 

@@ -11,7 +11,11 @@ The port of ``em_adapt_tpu/train/optim.py::build_optimizer``
   update is applied every ``accum_steps`` microbatches;
 * the update emitted at microbatch step s uses the microbatch-indexed LR
   at s (the re-indexing of optim.py:117-128);
-* weight decay enters through the loss, not here; LR groups stay off.
+* weight decay enters through the loss, not here;
+* with ``lr_multipliers`` the Caffe LR groups scale the (accumulated)
+  gradient before SGD: bias x2, fc8 weight x10, fc8 bias x20
+  (optim.py:79-105). The reference computes them and drops them (a dead
+  rebinding loop, reference deeplab.py:194-200), so they default off.
 """
 
 from __future__ import annotations
@@ -36,15 +40,37 @@ def lr_at(cfg: OptimConfig, steps_per_epoch: int, step: int) -> float:
     return lr
 
 
+#: Gradient multiplier of each Caffe LR group (optim.py:93).
+GROUP_MULTIPLIERS = {"weight": 1.0, "bias": 2.0, "fc8_w": 10.0, "fc8_b": 20.0}
+
+
+def lr_group(name: str) -> str:
+    """The LR group of the parameter ``name`` ("layers.<layer>.weight" or
+    ".bias", as ``named_parameters`` gives it)."""
+    layer, kind = name.split(".")[-2:]
+    bias = kind == "bias"
+    if layer == "fc8":
+        return "fc8_b" if bias else "fc8_w"
+    return "bias" if bias else "weight"
+
+
 class AccumulatingSGD:
     """``optax.MultiSteps(optax.sgd(lr, momentum), accum_steps)`` over
-    parameters whose ``.grad`` holds one microbatch's gradient."""
+    parameters whose ``.grad`` holds one microbatch's gradient; with
+    ``cfg.lr_multipliers`` the ``_scale_by_group`` link before SGD, for
+    which ``names`` (one per parameter) are needed."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
-                 steps_per_epoch: int = 1):
+                 steps_per_epoch: int = 1, names: Iterable[str] | None = None):
         self.params = list(params)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
+        self.multipliers = None
+        if cfg.lr_multipliers:
+            names = list(names) if names is not None else None
+            if names is None or len(names) != len(self.params):
+                raise ValueError("optim.lr_multipliers needs one name per parameter")
+            self.multipliers = [GROUP_MULTIPLIERS[lr_group(n)] for n in names]
         self.sgd = torch.optim.SGD(
             self.params, lr=cfg.base_lr, momentum=cfg.momentum, dampening=0.0,
             nesterov=False, weight_decay=0.0,
@@ -66,6 +92,10 @@ class AccumulatingSGD:
                 p.grad.copy_(a)
                 a.zero_()
             self.mini_step = 0
+        if self.multipliers is not None:
+            for p, m in zip(self.params, self.multipliers):
+                if m != 1.0:
+                    p.grad.mul_(m)
         for group in self.sgd.param_groups:
             group["lr"] = lr_at(self.cfg, self.steps_per_epoch, step)
         self.sgd.step()

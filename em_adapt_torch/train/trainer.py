@@ -3,13 +3,17 @@
 One microbatch step (reference deeplab.py:242-280): forward with dropout
 -> TF1 nearest shrink of the label to the score map -> E-step weak labels
 (no gradient) -> mean cross-entropy over all pixels + wd * L2(weights)
--> backward -> accumulated SGD with momentum. The pure-weak path of
-``em_adapt_tpu/train/trainer.py::loss_fn`` (trainer.py:138-230).
+-> backward -> accumulated SGD with momentum (with the Caffe LR groups
+on ``optim.lr_multipliers``). ``loss_fn`` is
+``em_adapt_tpu/train/trainer.py::loss_fn`` (trainer.py:138-230) with its
+variants: semi-supervision and the tag warm-up.
 ``Trainer.fit`` is the loop of ``em_adapt_tpu/train/trainer.py::fit``
 (l.612-884) on one process: the batches arrive through a
-``DevicePrefetcher`` (``data.prefetch`` deep); "norm" saves, "lr"
-snapshots, the preemption save and the loss watchdog. Semi-supervision,
-tag warm-up and periodic eval come with ROADMAP.md Queue 1 item 2 (2d).
+``DevicePrefetcher`` (``data.prefetch`` deep), each loss is checked one
+step late, and the card is waited for only at the log, eval and save
+cadences; "norm" saves, "lr" snapshots, "best" on periodic eval, the
+preemption save and the loss watchdog. ``Trainer.warm_start`` takes a
+checkpoint's parameters only.
 
 Randomness: one ``torch.Generator`` on the training device draws the
 dropout masks and the E-step's class orders. It gives other draws than
@@ -19,6 +23,10 @@ the JAX package's keys; tests inject the same orders and masks instead.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
+import math
+import os
 import time
 from typing import Callable, Iterable
 
@@ -40,6 +48,34 @@ from em_adapt_torch.train.state import TrainState
 from em_adapt_torch.utils.failure import GracefulShutdown, LossWatchdog
 
 
+def tag_classification_loss(
+    logits: torch.Tensor,
+    shrunk: torch.Tensor,
+    num_classes: int,
+    smoothing: float = 0.05,
+    pool_r: float = 1.0,
+) -> torch.Tensor:
+    """The weak-tag classification loss of the tag warm-up
+    (``em_adapt_tpu/train/trainer.py::tag_classification_loss``): each
+    class's scores LSE-pooled over positions, ``(1/r)(logsumexp(r·x) −
+    log HW)`` (the smooth max of Pinheiro & Collobert, arXiv:1411.6228
+    §3.1), scored with sigmoid BCE against the image-level tags smoothed
+    to [eps, 1-eps]. A class is present iff it occurs in the mask and is
+    below ``num_classes`` (255, the ignore label, drops out).
+
+    logits [B,h,w,C] f32, shrunk [B,h,w] (the mask at the score map's
+    size). Returns the scalar mean over [B, C].
+    """
+    b, h, w, c = logits.shape
+    classes = torch.arange(num_classes, device=logits.device)
+    lab = shrunk.to(torch.int64).reshape(b, h * w, 1)
+    tags = (lab == classes).any(1).to(logits.dtype)  # [B,C]
+    tags = tags * (1.0 - 2.0 * smoothing) + smoothing
+    pooled = (torch.logsumexp(pool_r * logits.reshape(b, h * w, c), 1)
+              - math.log(float(h * w))) / pool_r
+    return F.binary_cross_entropy_with_logits(pooled, tags, reduction="none").mean()
+
+
 def loss_fn(
     model: DeepLabLargeFOV,
     batch: dict,
@@ -48,12 +84,27 @@ def loss_fn(
     generator: torch.Generator | None = None,
     orders: torch.Tensor | None = None,
     masks: tuple[torch.Tensor, torch.Tensor] | None = None,
+    step: int | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Total loss = CE(logits, E-step labels) + wd * L2(weights).
+    """Total loss = CE(logits, targets) + wd * L2(weights).
 
-    batch: {"image" [B,H,W,3], "label" [B,H,W,1] (255 = ignore)} tensors
-    on the model's device. ``orders`` and ``masks`` replace the draws from
-    ``generator``. Returns (total, {"loss", "loss_norm", "loss_l2", "weak"}).
+    batch: {"image" [B,H,W,3], "label" [B,H,W,1] (255 = ignore), and with
+    ``cfg.semi_supervised`` optionally "is_strong" [B] bool} tensors on
+    the model's device. ``orders`` and ``masks`` replace the draws from
+    ``generator``. Returns (total, {"loss", "loss_norm", "loss_l2",
+    "weak"}); "weak" is None on a tag warm-up step.
+
+    Targets: the E-step's weak labels, over every pixel (reference
+    deeplab.py:182). With ``cfg.semi_supervised`` and "is_strong" in the
+    batch, strong images train on their shrunk true masks instead, void
+    pixels masked out, and the sum is divided by max(valid pixels, 1)
+    (``em_adapt_tpu/train/trainer.py:196-208``). While ``step`` is below
+    ``train.tag_warmup_steps`` the loss is
+    :func:`tag_classification_loss` instead. The JAX package computes the
+    E-step there too and discards it; here it does not run (K1 is not
+    launched), but its class orders are still drawn, so the generator
+    advances as on an EM step and a run resumed inside or across the
+    warm-up draws what the uninterrupted run draws.
     """
     c = cfg.model.num_classes
     logits = model(batch["image"], train=True, generator=generator, masks=masks)
@@ -65,14 +116,27 @@ def loss_fn(
         shrunk = resize_nearest_tf(label, out_hw)[..., 0]  # reference deeplab.py:110
     if orders is None:
         orders = make_class_orders(generator, cfg.estep.num_iter, c)
-    weak = estep_labels(logits.detach(), shrunk, orders, cfg.estep)
-    # NCHW view of the logits; every pixel has a valid weak label, so the
-    # mean runs over all of them (reference deeplab.py:182). It is taken
-    # over the per-pixel losses because cross_entropy's own mean adds them
-    # with atomics on a CUDA card: its value (not its gradient) would vary
-    # in the last bits from run to run, and a resumed run's losses must
-    # equal the uninterrupted run's.
-    ce = F.cross_entropy(logits.permute(0, 3, 1, 2), weak, reduction="none").mean()
+    weak = None
+    if step is not None and step < cfg.train.tag_warmup_steps:
+        ce = tag_classification_loss(logits, shrunk, c, cfg.train.tag_warmup_smoothing,
+                                     cfg.train.tag_warmup_pool_r)
+    else:
+        weak = estep_labels(logits.detach(), shrunk, orders, cfg.estep)
+        # NCHW view of the logits. Every reduction below is a sum over the
+        # per-pixel losses: cross_entropy's own mean adds them with atomics
+        # on a CUDA card, so its value (not its gradient) would vary in the
+        # last bits from run to run, and a resumed run's losses must equal
+        # the uninterrupted run's.
+        nchw = logits.permute(0, 3, 1, 2)
+        if cfg.semi_supervised and "is_strong" in batch:
+            strong = batch["is_strong"].to(torch.bool)[:, None, None]
+            true_lab = shrunk.to(torch.int64)
+            target = torch.where(strong, true_lab, weak)
+            valid = torch.where(strong, true_lab < c, True)
+            ce_map = F.cross_entropy(nchw, target.clamp(0, c - 1), reduction="none")
+            ce = (ce_map * valid).sum() / valid.sum().clamp(min=1)
+        else:
+            ce = F.cross_entropy(nchw, weak, reduction="none").mean()
     l2 = model.weight_l2()
     total = ce + cfg.optim.weight_decay * l2
     return total, {"loss": total.detach(), "loss_norm": ce.detach(),
@@ -92,7 +156,8 @@ def train_step(
     for p in state.optimizer.params:
         p.grad = None
     total, metrics = loss_fn(
-        state.model, batch, cfg, generator=state.generator, orders=orders, masks=masks
+        state.model, batch, cfg, generator=state.generator, orders=orders, masks=masks,
+        step=state.step,
     )
     total.backward()
     metrics["updated"] = state.optimizer.step(state.step)
@@ -112,6 +177,53 @@ def to_device(batch: dict, device: torch.device) -> dict:
     }
 
 
+def full_sync(device: torch.device) -> None:
+    """Wait until ``device`` has run everything queued on it: the loop's
+    sync at a log window (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class LateLossReader:
+    """Each step's (loss, loss_norm, loss_l2), read one step late without
+    draining the device's queue.
+
+    :meth:`push` right after a step's launch copies the three scalars
+    (``non_blocking``) into a slot of a small ring of pinned host memory
+    and records a CUDA event behind the copy; :meth:`read` of that slot
+    after the next step's launch waits on the event, i.e. for that step
+    alone, not for the step queued behind it (a ``float()`` of the loss
+    tensor would go onto the stream behind it and wait for both). A slot
+    is reused after ``slots`` pushes; the loop reads each before pushing
+    two more. On the CPU the values are copied as they are.
+    """
+
+    def __init__(self, device: torch.device, slots: int = 4):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.host = torch.empty(slots, 3, dtype=torch.float32, pin_memory=self.cuda)
+        self.events: list = [None] * slots
+        self.pushed = 0
+
+    def push(self, metrics: dict) -> int:
+        """Queue the copy of one step's metrics; returns its slot."""
+        slot = self.pushed % len(self.events)
+        self.pushed += 1
+        vals = torch.stack([metrics["loss"], metrics["loss_norm"], metrics["loss_l2"]])
+        self.host[slot].copy_(vals.to(torch.float32), non_blocking=self.cuda)
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self.events[slot] = event
+        return slot
+
+    def read(self, slot: int) -> tuple[float, float, float]:
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        loss, norm, l2 = self.host[slot].tolist()
+        return loss, norm, l2
+
+
 class Trainer:
     """Owns the model, optimizer, generator and checkpoints of one training run."""
 
@@ -122,6 +234,8 @@ class Trainer:
         set_precision(cfg.model.compute_dtype)
         self.steps_per_epoch = steps_per_epoch or 1
         self.checkpointer = CheckpointManager(cfg.checkpoint)
+        # The best periodic-eval score of this lineage; fit() sets it (see there).
+        self._best_metric = float("-inf")
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Fresh parameters (drawn on the CPU from ``seed``, so a seed gives
@@ -129,7 +243,8 @@ class Trainer:
         seed = self.cfg.train.seed if seed is None else seed
         model = build_model(self.cfg.model, seed, self.device)
         model.train()
-        optimizer = AccumulatingSGD(model.parameters(), self.cfg.optim, self.steps_per_epoch)
+        names, params = zip(*model.named_parameters())
+        optimizer = AccumulatingSGD(params, self.cfg.optim, self.steps_per_epoch, names=names)
         generator = torch.Generator(self.device).manual_seed(seed + 1)
         return TrainState(model, optimizer, generator)
 
@@ -137,6 +252,43 @@ class Trainer:
         """The full state saved under ``tag`` at ``step`` (default: the
         latest), on this trainer's device."""
         return self.checkpointer.restore(self.init_state(), tag, step)
+
+    def warm_start(self, state: TrainState, save_dir: str, tag: str = "norm",
+                   step: int | None = None) -> TrainState:
+        """Params-only warm start (reference ``model_path`` semantics,
+        deeplab.py:229-234): the parameters of the checkpoint ``tag`` at
+        ``step`` (default: the latest) under ``save_dir`` are copied into
+        ``state``, a fresh state whose zeroed optimizer, step 0 and
+        generator stay as they are, so the LR schedule starts from the top.
+        A checkpoint saved under another optimizer layout (another
+        ``accum_steps``, say) loads too. ``--resume`` is the opposite
+        contract: the whole state, continued bit for bit."""
+        mgr = CheckpointManager(dataclasses.replace(self.cfg.checkpoint, save_dir=save_dir))
+        mgr.restore_params(state.model, tag, step)
+        return state
+
+    def _best_metric_path(self) -> str:
+        return os.path.join(os.path.abspath(self.cfg.checkpoint.save_dir), "best_metric.json")
+
+    def _load_best_metric(self) -> float:
+        """The best score stored beside the checkpoints, -inf when there is
+        none (or it is unreadable): a resumed run's first eval must not
+        replace a better "best" saved before the preemption."""
+        try:
+            with open(self._best_metric_path()) as f:
+                return float(json.load(f)["metric"])
+        except (OSError, ValueError, KeyError, TypeError):
+            return float("-inf")
+
+    def _store_best_metric(self, score: float, step: int) -> None:
+        """Write ``best_metric.json`` atomically (a temporary file renamed
+        into place)."""
+        path = self._best_metric_path()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"metric": float(score), "step": int(step)}, f)
+        os.replace(tmp, path)
 
     def train_step(self, state: TrainState, batch: dict, **kw) -> dict:
         return train_step(state, to_device(batch, self.device), self.cfg, **kw)
@@ -148,6 +300,7 @@ class Trainer:
         *,
         num_steps: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
+        eval_fn: Callable[[TrainState], float] | None = None,
     ) -> list[dict]:
         """Train until ``state.step`` reaches ``num_steps`` (an absolute
         budget: a resumed state runs only the rest; default epochs *
@@ -158,29 +311,83 @@ class Trainer:
         than the budget's rest and is closed on every way out; batches it
         read ahead and that were not used are dropped.
 
-        Saves "norm" where the step crosses a multiple of
-        ``checkpoint.save_every_steps`` (0: never), "lr" right before the
-        first step of each LR drop, and on a signal "norm" at the step
-        reached, then returns. Every loss goes through the watchdog as soon
-        as its step ends, before any save of that state: a non-finite or
-        frozen loss raises "training unhealthy" and nothing more is saved.
+        The host does not wait for a step before launching the next: each
+        step's loss is read one step late (:class:`LateLossReader`), after
+        the next step has been launched, and goes through the watchdog
+        then, in order; a non-finite or frozen loss raises "training
+        unhealthy at step N" and nothing more is saved. Before any save
+        the loss of the step being saved is checked, and after the last
+        step the last loss. The loop waits for the whole device only at
+        its cadences (``em_adapt_tpu/train/trainer.py::Trainer.fit``,
+        l.612-884):
+
+        * a log window, where ``state.step`` crosses a multiple of
+          ``train.log_every_steps`` (0: never): after the sync the last
+          step's loss is checked, then ``log_fn`` gets {step (steps
+          done), epoch, lr (of the last step run), images_per_sec, loss,
+          loss_norm, loss_l2 (of the last step), window_seconds (wall
+          since the previous window's end, or since the loop started, or
+          since the last eval ended), window_steps, and the sums over the
+          window's steps of wait_seconds and of estep_launches,
+          block1_fwd_launches and block1_bwd_launches (K1, K2 and K3)};
+        * periodic eval, where it crosses a multiple of
+          ``train.eval_every_steps`` (None: never) and ``eval_fn`` is
+          given: ``eval_fn(state)`` (higher is better), logged as {step,
+          val_metric}; an improvement on the best so far saves "best"
+          and writes ``save_dir/best_metric.json``. The best so far starts
+          at -inf for a state at step 0 (a fresh or warm-started run) and
+          at the stored one for a resumed state. The model's train/eval
+          mode is put back after ``eval_fn``, and eval draws nothing from
+          the training generator;
+        * "norm" where it crosses a multiple of
+          ``checkpoint.save_every_steps`` (0: never), "lr" right before
+          the first step of each LR drop, and on a signal "norm" at the
+          step reached, then return.
+
         The budget and the signal are checked before a batch is pulled.
 
-        Returns one record per step: step, loss, lr, whether the params
-        moved, ``wait_seconds`` (host clock in ``next()`` on the batches),
-        ``seconds`` (host clock from the batch in hand to the loss read,
-        which synchronizes the device) and the launches it made of the
-        E-step kernel K1 and of the fused block1's forward K2 and backward
-        K3.
+        Returns one record per step: step, loss (filled in when the check
+        reads it), lr, whether the params moved, ``wait_seconds`` (host
+        clock in ``next()`` on the batches), ``seconds`` (host clock from
+        the batch in hand to the step's launch returning, its loss copy
+        queued; the device may still be running it) and the launches it
+        made of the E-step kernel K1 and of the fused block1's forward K2
+        and backward K3.
         """
         cfg = self.cfg
         total = num_steps if num_steps is not None else cfg.train.epochs * self.steps_per_epoch
         lr_drops = ({epoch * self.steps_per_epoch for epoch, _ in cfg.optim.lr_schedule}
                     if cfg.checkpoint.snapshot_on_lr_drop else set())
-        every = cfg.checkpoint.save_every_steps
+        save_every = cfg.checkpoint.save_every_steps
+        log_every = cfg.train.log_every_steps
+        eval_every = cfg.train.eval_every_steps if eval_fn is not None else None
+        if state.step > 0 and self._best_metric == float("-inf"):
+            self._best_metric = self._load_best_metric()  # a resumed lineage
+        elif state.step == 0:
+            self._best_metric = float("-inf")  # a new lineage
         watchdog = LossWatchdog()
-        records = []
+        reader = LateLossReader(self.device)
+        records: list[dict] = []
+        unread: list[tuple[dict, int]] = []  # (record, reader slot) in step order
+
+        def check(upto: int) -> None:
+            """Read and check every unread loss of a step below ``upto``."""
+            while unread and unread[0][0]["step"] < upto:
+                record, slot = unread.pop(0)
+                record["loss"] = reader.read(slot)[0]
+                reason = watchdog.check(record["loss"])
+                if reason is not None:
+                    raise RuntimeError(f"training unhealthy at step {record['step']}: {reason}")
+
+        def checked_save(tag: str) -> None:
+            check(state.step)
+            self.checkpointer.save(state, tag)
+
+        def crossed(every: int | None, before: int) -> bool:
+            return bool(every) and before // every < state.step // every
+
         stop_step = None
+        t_window, n_window = time.perf_counter(), len(records)
         with GracefulShutdown() as shutdown, contextlib.ExitStack() as stack:
             if cfg.data.prefetch > 0 and not isinstance(batches, DevicePrefetcher):
                 batches = DevicePrefetcher(batches, self.device, depth=cfg.data.prefetch,
@@ -192,7 +399,7 @@ class Trainer:
                 if stop_step is None and shutdown.requested_uniform():
                     stop_step = shutdown.agreed_stop_step(state.step)
                 if stop_step is not None and state.step >= stop_step:
-                    self.checkpointer.save(state, "norm")
+                    checked_save("norm")
                     break
                 t0 = time.perf_counter()
                 batch = next(it, None)
@@ -200,30 +407,65 @@ class Trainer:
                 if batch is None:
                     break
                 if state.step in lr_drops:
-                    self.checkpointer.save(state, "lr")
+                    checked_save("lr")
+                step = state.step
                 launches = (k1.launches, k23.launches, k23.bwd_launches)
                 t0 = time.perf_counter()
                 metrics = self.train_step(state, batch)
-                loss = float(metrics["loss"])  # synchronizes the device
-                seconds = time.perf_counter() - t0
-                step = state.step - 1
-                reason = watchdog.check(loss)
-                if reason is not None:
-                    raise RuntimeError(f"training unhealthy at step {step}: {reason}")
+                slot = reader.push(metrics)
                 record = {
                     "step": step,
-                    "loss": loss,
+                    "loss": None,
                     "lr": lr_at(cfg.optim, self.steps_per_epoch, step),
                     "updated": metrics["updated"],
                     "wait_seconds": wait,
-                    "seconds": seconds,
+                    "seconds": time.perf_counter() - t0,
                     "estep_launches": k1.launches - launches[0],
                     "block1_fwd_launches": k23.launches - launches[1],
                     "block1_bwd_launches": k23.bwd_launches - launches[2],
                 }
                 records.append(record)
-                if log_fn is not None:
-                    log_fn(record)
-                if every and step // every < state.step // every:
-                    self.checkpointer.save(state, "norm")
+                unread.append((record, slot))
+                check(step)  # the previous step's loss, one step late
+                if crossed(log_every, step):
+                    full_sync(self.device)
+                    check(state.step)
+                    now = time.perf_counter()
+                    window = records[n_window:]
+                    if log_fn is not None:
+                        _, loss_norm, loss_l2 = reader.read(slot)
+                        log_fn({
+                            "step": state.step,
+                            "epoch": state.step / self.steps_per_epoch,
+                            "lr": record["lr"],
+                            "images_per_sec": len(window) * cfg.train.batch_size
+                            / (now - t_window),
+                            "loss": record["loss"],
+                            "loss_norm": loss_norm,
+                            "loss_l2": loss_l2,
+                            "window_seconds": now - t_window,
+                            "window_steps": len(window),
+                            **{k: sum(r[k] for r in window) for k in
+                               ("wait_seconds", "estep_launches", "block1_fwd_launches",
+                                "block1_bwd_launches")},
+                        })
+                    t_window, n_window = time.perf_counter(), len(records)
+                if crossed(eval_every, step):
+                    training = state.model.training
+                    try:
+                        score = float(eval_fn(state))
+                    finally:
+                        state.model.train(training)
+                    if log_fn is not None:
+                        log_fn({"step": state.step, "val_metric": score})
+                    if score > self._best_metric:
+                        self._best_metric = score
+                        checked_save("best")
+                        self._store_best_metric(score, state.step)
+                    # Eval is synchronous host work: the next window's
+                    # throughput counts steps only.
+                    t_window, n_window = time.perf_counter(), len(records)
+                if crossed(save_every, step):
+                    checked_save("norm")
+            check(state.step)  # the last step's loss
         return records

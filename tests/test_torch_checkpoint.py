@@ -30,7 +30,7 @@ IMAGES, BATCH = 8, 2
 
 
 def port_cfg(save_dir, *, accum=3, lr_schedule=((1, 1e-4),), save_every=0, snapshot=True,
-             max_to_keep=2, async_save=False, bf16=False, epochs=2, keep=0.5):
+             max_to_keep=2, async_save=False, bf16=False, epochs=2, keep=0.5, log_every=500):
     return pcfg.ExperimentConfig(
         model=pcfg.ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8,
                                width_multiplier=0.125, init_scheme="he",
@@ -40,7 +40,8 @@ def port_cfg(save_dir, *, accum=3, lr_schedule=((1, 1e-4),), save_every=0, snaps
         data=pcfg.DataConfig(input_size=(33, 33), num_workers=1),
         estep=pcfg.EStepConfig(num_iter=2),
         optim=pcfg.OptimConfig(accum_steps=accum, base_lr=0.01, lr_schedule=lr_schedule),
-        train=pcfg.TrainConfig(batch_size=BATCH, epochs=epochs, seed=0),
+        train=pcfg.TrainConfig(batch_size=BATCH, epochs=epochs, seed=0,
+                               log_every_steps=log_every),
         checkpoint=pcfg.CheckpointConfig(save_dir=str(save_dir), save_every_steps=save_every,
                                          max_to_keep=max_to_keep,
                                          snapshot_on_lr_drop=snapshot, async_save=async_save),
@@ -179,23 +180,25 @@ CLI_ARGS = ["--synthetic", "8", "--device", "cpu", "model.width_multiplier=0.125
 def test_cli_train_resume_continues_to_the_uninterrupted_params(tmp_path, capsys):
     """`train --steps 3`, then `train --resume --steps 6`, ends on the full
     state (params, momentum, acc, mini_step, step, generator) of one
-    `train --steps 6` run, bit for bit, and prints the same records."""
+    `train --steps 6` run, bit for bit, and logs the same records (one a
+    step, through ``--log-jsonl``)."""
     from em_adapt_torch.__main__ import main
 
-    def train(save_dir, *extra):
-        assert main(["train", *extra, *CLI_ARGS, f"checkpoint.save_dir={save_dir}"]) == 0
+    def train(save_dir, log, *extra):
+        assert main(["train", *extra, *CLI_ARGS, f"checkpoint.save_dir={save_dir}",
+                     "train.log_every_steps=1", "--log-jsonl", str(tmp_path / log)]) == 0
         return capsys.readouterr().out.strip().splitlines()
 
-    once = train(tmp_path / "once", "--steps", "6")
-    assert train(tmp_path / "twice", "--resume", "--steps", "3")[0] == (
-        "--resume: no checkpoint found, starting fresh")
-    resumed = train(tmp_path / "twice", "--resume", "--steps", "6")
-    assert resumed.pop(0) == "resumed from step 3"
-
-    def losses(lines):
+    def losses(log):
+        lines = (tmp_path / log).read_text().splitlines()
         return [(r["step"], r["loss"]) for r in map(json.loads, lines) if "loss" in r]
 
-    assert losses(resumed) == losses(once)[3:]
+    train(tmp_path / "once", "once.jsonl", "--steps", "6")
+    assert train(tmp_path / "twice", "first.jsonl", "--resume", "--steps", "3")[0] == (
+        "--resume: no checkpoint found, starting fresh")
+    resumed = train(tmp_path / "twice", "resumed.jsonl", "--resume", "--steps", "6")
+    assert resumed.pop(0) == "resumed from step 3"
+    assert losses("resumed.jsonl") == losses("once.jsonl")[3:]
     ckpt = [CheckpointManager(pcfg.CheckpointConfig(save_dir=str(tmp_path / d)))
             for d in ("once", "twice")]
     assert ckpt[0].all_steps("norm") == ckpt[1].all_steps("norm") == [4, 6]

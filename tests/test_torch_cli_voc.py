@@ -5,6 +5,7 @@ continues to the uninterrupted run's state bit for bit, and ``eval
 --fixed-size`` scores the "val" split, with and without the prefetcher."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -60,12 +61,18 @@ def test_convert_writes_the_jax_packages_masks(tree, tmp_path):
 
 
 def _train(capsys, save_dir, data_args, *extra):
-    assert main(["train", *extra, *SMALL, *data_args, f"checkpoint.save_dir={save_dir}"]) == 0
-    return capsys.readouterr().out.strip().splitlines()
+    """stdout's lines and the records logged through ``--log-jsonl``, one
+    a step."""
+    log = f"{save_dir}-{len(os.listdir(os.path.dirname(save_dir)))}.jsonl"
+    assert main(["train", *extra, *SMALL, *data_args, f"checkpoint.save_dir={save_dir}",
+                 "train.log_every_steps=1", "--log-jsonl", log]) == 0
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    return capsys.readouterr().out.strip().splitlines(), records
 
 
-def _losses(lines):
-    return [(r["step"], r["loss"]) for r in map(json.loads, lines) if "loss" in r]
+def _losses(records):
+    return [(r["step"], r["loss"]) for r in records if "loss" in r]
 
 
 def test_train_then_resume_on_a_voc_tree(tree, tmp_path, capsys):
@@ -73,15 +80,14 @@ def test_train_then_resume_on_a_voc_tree(tree, tmp_path, capsys):
     the state of one `train --steps 6` run bit for bit, with its losses;
     the run crosses an epoch (4 steps) and the LR drop at step 4."""
     _, data_args = tree
-    once = _train(capsys, tmp_path / "once", data_args, "--steps", "6")
-    assert [s for s, _ in _losses(once)] == list(range(6))
+    _, once = _train(capsys, tmp_path / "once", data_args, "--steps", "6")
+    assert [s for s, _ in _losses(once)] == list(range(1, 7))  # steps done at each record
     assert all(np.isfinite(v) for _, v in _losses(once))
-    first = _train(capsys, tmp_path / "twice", data_args, "--steps", "3")
-    resumed = _train(capsys, tmp_path / "twice", data_args, "--resume", "--steps", "6")
-    assert resumed.pop(0) == "resumed from step 3"
+    _, first = _train(capsys, tmp_path / "twice", data_args, "--steps", "3")
+    lines, resumed = _train(capsys, tmp_path / "twice", data_args, "--resume", "--steps", "6")
+    assert lines[0] == "resumed from step 3"
     assert _losses(first) + _losses(resumed) == _losses(once)
-    records = [json.loads(line) for line in once]
-    assert all(r["wait_seconds"] >= 0.0 for r in records)
+    assert all(r["wait_seconds"] >= 0.0 for r in once)
     ckpt = [CheckpointManager(pcfg.CheckpointConfig(save_dir=str(tmp_path / d)))
             for d in ("once", "twice")]
     assert ckpt[0].all_steps("norm") == ckpt[1].all_steps("norm") == [4, 6]

@@ -94,14 +94,14 @@ def test_handlers_are_installed_only_from_the_main_thread():
     assert not t.is_alive() and seen == [before]
 
 
-def cfg_for(save_dir, *, save_every=0, accum=2, keep=0.5):
+def cfg_for(save_dir, *, save_every=0, accum=2, keep=0.5, log_every=500):
     return pcfg.ExperimentConfig(
         model=pcfg.ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=8,
                                width_multiplier=0.125, init_scheme="he",
                                dropout_keep_prob=keep),
         estep=pcfg.EStepConfig(num_iter=2),
         optim=pcfg.OptimConfig(accum_steps=accum, base_lr=0.01, lr_schedule=()),
-        train=pcfg.TrainConfig(batch_size=2, seed=0),
+        train=pcfg.TrainConfig(batch_size=2, seed=0, log_every_steps=log_every),
         checkpoint=pcfg.CheckpointConfig(save_dir=str(save_dir), save_every_steps=save_every),
     )
 
@@ -118,21 +118,22 @@ def stream(poison_at=None, n=100):
 
 
 def test_fit_saves_on_preemption_and_resume_reproduces_the_control(tmp_path):
-    """A SIGTERM during step 2 (sent from log_fn): fit saves "norm" at
-    step 3, the stop step, and returns; a fresh Trainer restored from it
-    and fed the rest of the stream ends equal to a run never stopped."""
+    """A SIGTERM during step 2 (sent from log_fn, which gets a record after
+    every step): fit saves "norm" at step 3, the stop step, and returns; a
+    fresh Trainer restored from it and fed the rest of the stream ends
+    equal to a run never stopped."""
     control_cfg = cfg_for(tmp_path / "control")
     control = Trainer(control_cfg, device="cpu")
     want = control.init_state()
     want_records = control.fit(want, stream(), num_steps=6)
 
-    cfg = cfg_for(tmp_path / "run")
+    cfg = cfg_for(tmp_path / "run", log_every=1)
     trainer = Trainer(cfg, device="cpu")
     state = trainer.init_state()
     handler = signal.getsignal(signal.SIGTERM)
 
     def log_fn(record):
-        if record["step"] == 2:
+        if record["step"] == 3:  # three steps done: the window record of step 2
             _deliver(signal.SIGTERM)
 
     records = trainer.fit(state, stream(), num_steps=6, log_fn=log_fn)
@@ -152,14 +153,15 @@ def test_fit_saves_on_preemption_and_resume_reproduces_the_control(tmp_path):
 
 
 def test_fit_watchdog_fires_at_the_poisoned_step(tmp_path):
-    """A NaN batch at step 1 of 50 stops fit at step 1: step 0's record is
-    the only one logged."""
-    trainer = Trainer(cfg_for(tmp_path, accum=1), device="cpu")
+    """A NaN batch at step 1 of 50 stops fit at step 1: with a log window
+    every step, step 0's record (one step done) is the only one logged;
+    the window of step 1 checks step 1's loss before it logs."""
+    trainer = Trainer(cfg_for(tmp_path, accum=1, log_every=1), device="cpu")
     logged = []
     with pytest.raises(RuntimeError, match="training unhealthy at step 1: non-finite"):
         trainer.fit(trainer.init_state(), stream(poison_at=1), num_steps=50,
                     log_fn=logged.append)
-    assert [r["step"] for r in logged] == [0]
+    assert [r["step"] for r in logged] == [1]
 
 
 def test_fit_watchdog_checks_final_dispatch(tmp_path):
@@ -183,8 +185,8 @@ def test_fit_never_checkpoints_nan_state(tmp_path):
 def test_fit_watchdog_stops_a_frozen_loss(tmp_path):
     """LR 0, no dropout, one background-only batch again and again (so the
     E-step's drawn class orders do not matter): the loss is bit-frozen and
-    fit raises at the 50th repeat (step 50), having saved nothing of that
-    state."""
+    fit raises at the 50th repeat (step 50), read one step late, after
+    step 51's launch, having saved nothing of that state."""
     cfg = cfg_for(tmp_path, save_every=60, accum=1, keep=1.0)
     cfg = cfg.replace(optim=pcfg.OptimConfig(accum_steps=1, base_lr=0.0, lr_schedule=()))
     batch = next(stream())
@@ -193,7 +195,7 @@ def test_fit_watchdog_stops_a_frozen_loss(tmp_path):
     state = trainer.init_state()
     with pytest.raises(RuntimeError, match="training unhealthy at step 50: loss frozen"):
         trainer.fit(state, (batch for _ in range(100)), num_steps=100)
-    assert state.step == 51 and trainer.checkpointer.all_steps("norm") == []
+    assert state.step == 52 and trainer.checkpointer.all_steps("norm") == []
 
 
 def trained_state():

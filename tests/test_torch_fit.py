@@ -164,14 +164,14 @@ def test_fit_closes_its_prefetcher_on_every_way_out(tmp_path, monkeypatch, way_o
             made.append(self)
 
     monkeypatch.setattr(trainer_mod, "DevicePrefetcher", Recorded)
-    cfg = port_cfg(tmp_path, accum=1)
+    cfg = port_cfg(tmp_path, accum=1, log_every=1)
     trainer = trainer_for(cfg)
     state = trainer.init_state()
     source = _poisoned(cfg, 1) if way_out == "watchdog" else batches(cfg)
     stream = (b for _, b in zip(range(2), source)) if way_out == "batches-end" else source
 
-    def log_fn(record):
-        if way_out == "sigterm" and record["step"] == 0:
+    def log_fn(record):  # the window record after step 0 (one step done)
+        if way_out == "sigterm" and record["step"] == 1:
             signal.raise_signal(signal.SIGTERM)
 
     if way_out == "watchdog":

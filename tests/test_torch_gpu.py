@@ -643,3 +643,79 @@ def test_fit_with_the_prefetcher_on_the_card_equals_fit_without(cuda_device, tmp
         runs.append(([r["loss"] for r in records], state.state_dict()))
     assert runs[0][0] == runs[1][0] and len(runs[0][0]) == 6
     assert bitwise_diff(runs[0][1], runs[1][1]) == []
+
+
+@pytest.mark.gpu
+def test_fit_makes_no_host_sync_between_cadences(cuda_device, tmp_path):
+    """A small bf16 run with K1, K2 and K3 through the prefetcher, with no
+    log, eval or save cadence inside it, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step makes the host
+    wait for the card (a synchronizing call raises), from the first step
+    on; the late loss reads wait on events, which the mode allows."""
+    import dataclasses
+
+    trainer = _small_trainer(cuda_device, tmp_path, compute_dtype="bfloat16",
+                             block1_impl="pallas")
+    trainer.cfg = trainer.cfg.replace(checkpoint=dataclasses.replace(
+        trainer.cfg.checkpoint, snapshot_on_lr_drop=False))  # no "lr" save at step 4
+    state = trainer.init_state()
+    batches = _batches(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        records = trainer.fit(state, batches, num_steps=6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        batches.close()
+    assert len(records) == 6 and all(np.isfinite(r["loss"]) for r in records)
+    assert all((r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+               == (1, 1, 1) for r in records)
+
+
+@pytest.mark.gpu
+def test_late_loss_check_equals_per_step_reads(cuda_device, tmp_path):
+    """The losses fit reads one step late equal, bit for bit, those of the
+    same steps with the loss read (and the card waited for) after each."""
+    trainer = _small_trainer(cuda_device, tmp_path, compute_dtype="bfloat16",
+                             block1_impl="pallas")
+    state = trainer.init_state()
+    late = [r["loss"] for r in trainer.fit(state, _batches(trainer), num_steps=6)]
+    state = trainer.init_state()
+    batches = _batches(trainer)
+    read = [float(trainer.train_step(state, next(batches))["loss"]) for _ in range(6)]
+    batches.close()
+    assert late == read
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", ["norm", "best"])
+def test_nan_on_a_save_step_is_never_written(cuda_device, tmp_path, tag):
+    """Step 1, after which "norm" (every 2) or "best" (an eval every 2)
+    would be saved, leaves NaN in the params and in its loss: fit raises
+    and nothing is written. (The NaN is put into the state after the
+    step's launch: a NaN image does not reach the loss in the same step
+    in bf16, since the fused block 1's ReLU maps NaN to 0.)"""
+    import dataclasses
+
+    trainer = _small_trainer(cuda_device, tmp_path, compute_dtype="bfloat16",
+                             block1_impl="pallas")
+    cfg = trainer.cfg
+    trainer.cfg = cfg.replace(
+        checkpoint=dataclasses.replace(cfg.checkpoint, save_every_steps=2 if tag == "norm" else 0),
+        train=dataclasses.replace(cfg.train, eval_every_steps=2 if tag == "best" else None))
+    step = trainer.train_step
+
+    def poisoned(state, batch):
+        metrics = step(state, batch)
+        if state.step == 2:  # step 1 has run
+            with torch.no_grad():
+                state.model.layers["fc8"].bias.fill_(float("nan"))
+            metrics["loss"] = metrics["loss"] * float("nan")
+        return metrics
+
+    trainer.train_step = poisoned
+    with pytest.raises(RuntimeError, match="training unhealthy at step 1: non-finite"):
+        trainer.fit(trainer.init_state(), _batches(trainer), num_steps=4,
+                    eval_fn=lambda s: 1.0)
+    assert trainer.checkpointer.all_steps("norm") == trainer.checkpointer.all_steps("best") == []
+    assert not (tmp_path / "best_metric.json").exists()

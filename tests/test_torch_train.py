@@ -220,6 +220,7 @@ def test_batches_bit_identical_to_jax_pipeline():
 def test_trainer_fit_on_cpu(tmp_path):
     _, pc = both_cfgs(accum=2, keep=0.5)
     pc = pc.replace(data=dataclasses.replace(pc.data, input_size=(33, 33), num_workers=2),
+                    train=dataclasses.replace(pc.train, log_every_steps=1),
                     checkpoint=pcfg.CheckpointConfig(save_dir=str(tmp_path)))
     from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
 
@@ -228,7 +229,10 @@ def test_trainer_fit_on_cpu(tmp_path):
     logged = []
     records = trainer.fit(state, batch_iterator(SyntheticVOC(8, 4), pc.data, batch_size=2),
                           num_steps=4, log_fn=logged.append)
-    assert records == logged and len(records) == 4 and state.step == 4
+    # One log window a step; its record counts the steps done.
+    assert [(r["step"] + 1, r["loss"], r["lr"]) for r in records] == [
+        (w["step"], w["loss"], w["lr"]) for w in logged]
+    assert len(records) == 4 and state.step == 4
     assert all(np.isfinite(r["loss"]) for r in records)
     assert [r["updated"] for r in records] == [False, True, False, True]
     assert [r["lr"] for r in records] == [0.05, 0.05, 0.005, 0.005]
@@ -261,7 +265,8 @@ def test_config_defaults_match_jax_and_unported_values_raise():
 
 def test_entry_points_need_a_device_choice(monkeypatch, capsys, tmp_path):
     """With no card and no device given, the entry points raise; with
-    device='cpu' the CLI trains and prints one record per step."""
+    device='cpu' the CLI trains and logs one record per step (stdout and
+    ``--log-jsonl``)."""
     from em_adapt_torch.__main__ import main
     from em_adapt_torch.device import resolve_device
 
@@ -271,11 +276,14 @@ def test_entry_points_need_a_device_choice(monkeypatch, capsys, tmp_path):
     args = ["train", "--synthetic", "4", "--steps", "2", "model.width_multiplier=0.125",
             "model.fc6_channels=8", "model.num_classes=4", "model.input_size=(33, 33)",
             "train.batch_size=2", "optim.accum_steps=2", "data.num_workers=1",
-            "optim.lr_schedule=((1, 0.0001),)", f"checkpoint.save_dir={tmp_path}"]
+            "optim.lr_schedule=((1, 0.0001),)", f"checkpoint.save_dir={tmp_path}",
+            "train.log_every_steps=1", "--log-jsonl", str(tmp_path / "log.jsonl")]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(args)
     assert main(args + ["--device", "cpu"]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 2 and '"loss"' in lines[0]
+    lines = [line for line in capsys.readouterr().out.strip().splitlines()
+             if line.startswith("[train]")]
+    records = [json.loads(line) for line in (tmp_path / "log.jsonl").read_text().splitlines()]
+    assert len(lines) == len(records) == 2 and " loss=" in lines[0] and "loss" in records[0]
     # An epoch is 4 images / batch 2 = 2 steps: the LR drops only at step 2.
-    assert [json.loads(line)["lr"] for line in lines] == [1e-3, 1e-3]
+    assert [r["lr"] for r in records] == [1e-3, 1e-3]
