@@ -13,6 +13,9 @@ E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
 backward K3), batches copied through ``DevicePrefetcher``; the input
 layer (the producer alone, ``fit`` with and without the prefetcher, and
 ``convert``, ``train`` and ``eval`` on a VOC-layout tree it writes); the
+VOC protocol (each image at its original size) without the CRF, with the
+host CRF on the permutohedral lattice and with the CRF on the card, held
+against the host grid CRF (phase "eval VOC"); the
 loop at three log cadences on cached batches (wall, busy share, host
 syncs outside the cadences); the training variants through the command
 line (tag warm-up, semi-supervision, LR groups, periodic eval with
@@ -1137,6 +1140,263 @@ def voc_tree_phase(device, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: The phase "eval VOC": synthetic val images (sizes 200-499, so each of the
+#: three buckets gets some), the images held to the host grid CRF, and the
+#: JPEG tree of its command-line runs (count, width x height, quality).
+VOC_EVAL_IMAGES = 48
+VOC_AGREE_IMAGES = 4
+VOC_EVAL_TREE = dict(val=6, size=(500, 375), quality=90)
+#: Reruns of the card CRF on the fault fixture that must equal the first bit
+#: for bit (the splat sums each cell in pixel order).
+VOC_CRF_RERUNS = 5
+
+
+def crf_grid_bytes(bucket: tuple[int, int], classes: int, cfg) -> int:
+    """Bytes one CRF iteration must move per image in ``bucket``: the
+    bilateral grid (classes + 1 channels, f32) read and written once per
+    blur axis (five)."""
+    from em_adapt_torch.eval.crf_device import grid_cells
+
+    return 2 * 5 * grid_cells(*bucket, cfg) * (classes + 1) * 4
+
+
+def write_jpeg_tree(root: str, n: int, size: tuple[int, int], quality: int, seed: int):
+    """A VOC-layout tree of ``n`` val JPEGs (smooth random images with
+    noise) and index-PNG masks (1-3 ellipses of random classes, a void
+    border around each); (main_path, list_dir)."""
+    from PIL import Image, ImageDraw
+
+    main_path, list_dir = os.path.join(root, "VOCdevkit", "VOC2012"), os.path.join(root, "txt")
+    for d in ("JPEGImages", "SegmentationClassAug"):
+        os.makedirs(os.path.join(main_path, d))
+    os.makedirs(list_dir)
+    g = np.random.default_rng(seed)
+    w, h = size
+    ids = [f"2012_val{i:04d}" for i in range(n)]
+    for img_id in ids:
+        low = Image.fromarray(g.integers(0, 256, size=(12, 16, 3), dtype=np.uint8))
+        img = np.asarray(low.resize((w, h), Image.BICUBIC), np.float32)
+        img = np.clip(img + g.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(main_path, "JPEGImages", f"{img_id}.jpg"),
+                                  quality=quality)
+        mask = Image.new("L", (w, h), 0)
+        draw = ImageDraw.Draw(mask)
+        for _ in range(int(g.integers(1, 4))):
+            x0, y0 = int(g.integers(0, w // 2)), int(g.integers(0, h // 2))
+            box = [x0, y0, x0 + int(g.integers(40, w // 2)), y0 + int(g.integers(40, h // 2))]
+            draw.ellipse(box, fill=int(g.integers(1, 21)), outline=255, width=5)
+        mask.save(os.path.join(main_path, "SegmentationClassAug", f"{img_id}.png"))
+    with open(os.path.join(list_dir, "val.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return main_path, list_dir
+
+
+def eval_voc_phase(device, card: str) -> dict:
+    """Phase "eval VOC": the VOC protocol (each image at its original size)
+    through ``Evaluator.confusion_voc`` at full width, bf16 (K2 once a
+    batch), He init, on VOC_EVAL_IMAGES synthetic val images: without the
+    CRF, with the host CRF on the permutohedral lattice (``crf_workers``
+    = the machine's cores; a lattice that does not build fails the
+    phase), and with the CRF on the card (``crf_impl="tpu"``). Then the
+    card's CRF against the host grid CRF per image, against itself on the
+    CPU on the committed fault fixture, and ``eval --crf`` on a JPEG tree
+    through the command line, with the CRF on the host and on the card."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from em_adapt_torch.__main__ import main as cli
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
+    from em_adapt_torch.data.pipeline import SyntheticVOC
+    from em_adapt_torch.eval import crf_device, permutohedral
+    from em_adapt_torch.eval.crf import dense_crf
+    from em_adapt_torch.eval.miou import miou_from_confusion
+    from em_adapt_torch.eval.predict import Evaluator, crf_buckets, route
+    from em_adapt_torch.models.deeplab import build_model
+    from em_adapt_torch.ops import block1 as k2
+
+    tag = "eval VOC"
+    base = ExperimentConfig()
+    base = base.replace(model=dataclasses.replace(base.model, init_scheme="he",
+                                                  compute_dtype="bfloat16"))
+    cores = os.cpu_count() or 1
+    cfgs = {"no CRF": base,
+            "host CRF": base.replace(eval=dataclasses.replace(base.eval, crf_workers=cores)),
+            "card CRF": base.replace(eval=dataclasses.replace(base.eval, crf_impl="tpu"))}
+    c, bs, iters = base.model.num_classes, base.eval.batch_size, base.eval.crf_iterations
+    model = build_model(base.model, 0, device)
+    data = SyntheticVOC(VOC_EVAL_IMAGES, c, seed=1)
+    raws = [data.load_raw(i) for i in range(VOC_EVAL_IMAGES)]
+    ceiling, buckets = crf_buckets(base.eval)
+    routed = {b: [i for i, (_, lab) in enumerate(raws) if route(*lab.shape, ceiling, buckets) == b]
+              for b in buckets}
+    log(f"{tag}: DeepLab-LargeFOV {sum(p.numel() for p in model.parameters())} params, input "
+        f"{base.model.input_size}, eval batch {bs}, bf16, init he, {VOC_EVAL_IMAGES} synthetic "
+        f"images of sizes 200-499; bucket -> images: "
+        f"{ {f'{b[0]}x{b[1]}': len(v) for b, v in routed.items()} }; {cores} cores")
+    if not all(routed.values()):
+        raise AssertionError(f"{tag}: a bucket got no image: {routed}")
+    if not permutohedral.available():
+        raise AssertionError(f"{tag}: the permutohedral lattice did not build: "
+                             f"{permutohedral.load_error()}")
+    ev = {name: Evaluator(cfg, model) for name, cfg in cfgs.items()}
+    ev["no CRF"].logits(np.zeros((bs, *base.model.input_size, 3), np.float32))
+    crf_devices = []
+    real_refine = crf_device.crf_refine
+
+    def refine(probs, *a, **kw):
+        crf_devices.append(probs.device.type)
+        return real_refine(probs, *a, **kw)
+
+    class Loaded:  # the images made beforehand: the window times the protocol, not the generator
+        def __len__(self):
+            return VOC_EVAL_IMAGES
+
+        def load_raw(self, i):
+            return raws[i]
+
+    out = {}
+    want_k2 = {"no CRF": -(-VOC_EVAL_IMAGES // bs), "host CRF": -(-VOC_EVAL_IMAGES // bs),
+               "card CRF": sum(-(-len(v) // bs) for v in routed.values())}
+    nonvoid = sum(int((lab < c).sum()) for _, lab in raws)
+    for name, e in ev.items():
+        lattices = permutohedral.lattices_built
+        crf_devices.clear()
+        crf_device.crf_refine = refine
+        k2.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            cm = e.confusion_voc(Loaded(), use_crf=name != "no CRF")
+            wall = time.perf_counter() - t0
+        finally:
+            crf_device.crf_refine = real_refine
+        peak = torch.cuda.max_memory_allocated()
+        miou, _ = miou_from_confusion(cm)
+        built = permutohedral.lattices_built - lattices
+        out[name] = dict(wall=wall, images_per_s=VOC_EVAL_IMAGES / wall, miou=miou,
+                         launches=k2.launches, peak=peak)
+        log(f"{tag} {name}: {VOC_EVAL_IMAGES / wall:.3f} images/s over the whole window "
+            f"({wall:.2f} s), mIoU {miou:.6f}, K2 launches {k2.launches}, lattices built "
+            f"{built}, CRF calls on the card {len(crf_devices)}, peak device memory "
+            f"{peak / 2**30:.3f} GiB ({card})")
+        if (k2.launches != want_k2[name] or int(cm.sum()) != nonvoid
+                or not (math.isfinite(miou) and 0.0 <= miou <= 1.0)):
+            raise AssertionError(f"{tag} {name}: K2 launched {k2.launches} times (expected "
+                                 f"{want_k2[name]}), confusion total {int(cm.sum())} of "
+                                 f"{nonvoid}, mIoU {miou}")
+        if name == "host CRF" and (built != VOC_EVAL_IMAGES or crf_devices):
+            raise AssertionError(f"{tag}: the host CRF built {built} lattices for "
+                                 f"{VOC_EVAL_IMAGES} images")
+        if name == "card CRF" and (not crf_devices or set(crf_devices) != {device.type}
+                                   or built):
+            raise AssertionError(f"{tag}: the card CRF ran on {crf_devices}")
+
+    # The card's CRF by bucket: one batch of the images routed there (padded
+    # to the batch), its post-process timed between CUDA events.
+    on_card = ev["card CRF"]
+    per_bucket = {}
+    for b, idx in routed.items():
+        imgs = [raws[i][0] for i in idx[:bs]]
+        x = np.stack([preprocess_eval(im, None, input_size=base.model.input_size)[0]
+                      for im in imgs])
+        logits = on_card.logits(np.concatenate([x, np.zeros((bs - len(imgs), *x.shape[1:]),
+                                                          x.dtype)]))
+        ms = cuda_ms(lambda: on_card.voc_post_device(logits, imgs, b), reps=3, warmup=1)
+        bound_ms = bs * iters * crf_grid_bytes(b, c, base.eval) / HBM_BYTES_PER_S * 1e3
+        per_bucket[b] = dict(ms_per_image=ms / bs, bound_ms_per_image=bound_ms / bs)
+        log(f"{tag} card CRF bucket {b[0]}x{b[1]}: {ms:.2f} ms per batch of {bs} rows "
+            f"({len(imgs)} images, {bs - len(imgs)} padded), {ms / bs:.2f} ms per row (upsample, "
+            f"softmax, {iters} iterations, argmax, the label copy; median of 3 between CUDA "
+            f"events); bound {bound_ms / bs:.3f} ms per row by bytes (the grid of "
+            f"{crf_device.grid_cells(*b, base.eval)} cells x {c + 1} f32 read and written once "
+            f"per blur axis per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) ({card})")
+
+    # Agreement with the host grid CRF on the same logits, per image.
+    idx = list(range(VOC_AGREE_IMAGES))
+    x = np.stack([preprocess_eval(raws[i][0], None, input_size=base.model.input_size)[0]
+                  for i in idx])
+    logits = on_card.logits(np.concatenate([x, np.zeros((bs - len(idx), *x.shape[1:]), x.dtype)]))
+    host_in = []
+    for j, i in enumerate(idx):
+        up = resize_bilinear_np(logits[j].float().cpu().numpy(), raws[i][1].shape)
+        ex = np.exp(up - up.max(-1, keepdims=True))
+        host_in.append((ex / ex.sum(-1, keepdims=True), raws[i][0], base.eval))
+    import functools
+    import multiprocessing
+
+    t0 = time.perf_counter()  # scipy's filters hold the GIL: one process an image
+    with multiprocessing.get_context("spawn").Pool(len(idx)) as pool:
+        host = [q.argmax(-1) for q in pool.starmap(functools.partial(dense_crf, method="grid"),
+                                                   host_in)]
+    host_s = time.perf_counter() - t0
+    agree = []
+    for j, i in enumerate(idx):
+        oh, ow = raws[i][1].shape
+        b = route(oh, ow, ceiling, buckets)
+        lab = on_card.voc_post_device(logits[j:j + 1], [raws[i][0]], b)[0, :oh, :ow]
+        agree.append(float((lab == host[j]).mean()))
+    log(f"{tag}: card CRF against the host grid CRF on the same logits, per image: "
+        f"{', '.join(f'{100 * a:.4f}%' for a in agree)} of pixels agree (host grid: "
+        f"{host_s:.1f} s for {len(idx)} images in {len(idx)} processes)")
+    if min(agree) < 0.999:
+        raise AssertionError(f"{tag}: card CRF and host grid CRF agree at only {agree}")
+
+    # The card's CRF against the same function on the CPU, on the fixture.
+    d = np.load(os.path.join(ROOT, "tests", "fixtures", "crf_tpu_fault_inputs.npz"))
+    mask = np.ones(d["probs"].shape[:3], np.float32)
+    on = {dev: crf_device.make_crf_device(base.eval, device=dev)(d["probs"], d["rgb"], mask)
+          for dev in (device, "cpu")}
+    fixture_err = float((on[device].cpu() - on["cpu"]).abs().max())
+    reruns = [crf_device.make_crf_device(base.eval, device=device)(d["probs"], d["rgb"], mask)
+              for _ in range(VOC_CRF_RERUNS)]
+    rerun_equal = all(torch.equal(again, on[device]) for again in reruns)
+    log(f"{tag}: card CRF on the fault fixture ({d['probs'].shape[0]} images "
+        f"{d['probs'].shape[1]}x{d['probs'].shape[2]}, {iters} iterations) against the CPU: "
+        f"max|diff| {fixture_err:.3e} (tolerance 1e-5); {VOC_CRF_RERUNS} reruns on the card "
+        f"{'bit-equal' if rerun_equal else 'NOT bit-equal'} to the first")
+    if not fixture_err <= 1e-5 or not rerun_equal:
+        raise AssertionError(f"{tag}: card CRF differs from the CPU by {fixture_err}, or a "
+                             f"rerun on the card differs from the first")
+
+    # The command line on a JPEG tree, the CRF on the host and on the card.
+    root = tempfile.mkdtemp(prefix="voceval-", dir=os.path.join(ROOT, "build"))
+    try:
+        main_path, list_dir = write_jpeg_tree(root, VOC_EVAL_TREE["val"], VOC_EVAL_TREE["size"],
+                                              VOC_EVAL_TREE["quality"], seed=3)
+        args = [f"data.main_path={main_path}", f"data.list_dir={list_dir}",
+                "model.compute_dtype=bfloat16", f"checkpoint.save_dir={os.path.join(root, 's')}",
+                f"eval.crf_workers={cores}"]
+        cli_out = {}
+        for impl in ("host", "tpu"):
+            buf = io.StringIO()
+            k2.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli(["eval", "--crf", *args, f"eval.crf_impl={impl}"])
+            wall = time.perf_counter() - t0
+            lines = buf.getvalue().splitlines()
+            if (rc != 0 or not lines[-1].startswith("mIoU = ")
+                    or not lines[-1].endswith(" (with CRF)") or len(lines) != 2 + c
+                    or not k2.launches):
+                raise AssertionError(f"{tag}: eval --crf eval.crf_impl={impl} exited {rc}, K2 "
+                                     f"launches {k2.launches}: {lines[-3:]}")
+            cli_out[impl] = float(lines[-1].split()[2])
+            log(f"{tag}: `eval --crf eval.crf_impl={impl}` on {VOC_EVAL_TREE['val']} JPEGs of "
+                f"{VOC_EVAL_TREE['size'][0]}x{VOC_EVAL_TREE['size'][1]}: {wall:.2f} s, K2 "
+                f"launches {k2.launches}, {lines[-1]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(runs=out, per_bucket=per_bucket, agree=agree, fixture_err=fixture_err,
+                cli=cli_out)
+
+
 #: The loop phase: LOOP_STEPS steps on LOOP_BATCHES host batches made
 #: beforehand and cycled, at each log cadence of LOOP_CADENCES, then
 #: LOOP_PROFILED more steps under a device-only torch.profiler trace.
@@ -1591,6 +1851,105 @@ def explain_block1(name: str, args, got, want) -> int:
     return y1_apart
 
 
+#: K2's NaN cases (name, batch, size, NaN pixels per image; seed 10 * size +
+#: batch + 1): integer-valued inputs, so that every finite output is an
+#: exact sum rounded alike by K2 and its plain version.
+K2_NAN_CASES = (("B=2 65x65 NaN", 2, 65, 3), ("B=1 321x321 NaN", 1, 321, 5))
+
+
+def nan_case(rng: np.random.Generator, b: int, h: int, nans: int, device):
+    """K2's and K3's arguments with NaN in x: integer x in [-3, 3] with
+    ``nans`` NaN pixels (all three channels) per image, weights in {-1, 0,
+    1} and integer biases (y1 <= 83, within bf16's exact integers; conv1_2
+    sums below 2^24), and the NaN mask that jnp.maximum's semantics give
+    the pooled output: x's NaN dilated by conv1_1's and conv1_2's 3x3
+    windows, then pooled 3x3 / 2 SAME."""
+    import torch
+    import torch.nn.functional as F
+
+    x = rng.integers(-3, 4, size=(b, 3, h, h)).astype(np.float32)
+    bad = np.zeros((b, 1, h, h), bool)
+    for i in range(b):
+        for r, c in rng.integers(0, h, size=(nans, 2)):
+            bad[i, 0, r, c] = True
+    x[np.broadcast_to(bad, x.shape)] = np.nan
+    w1 = rng.integers(-1, 2, size=(64, 3, 3, 3)).astype(np.float32)
+    w2 = rng.integers(-1, 2, size=(64, 64, 3, 3)).astype(np.float32)
+    b1, b2 = (rng.integers(-2, 3, size=64).astype(np.float32) for _ in "12")
+    reach = torch.from_numpy(bad).float()
+    for _ in range(2):  # conv1_1, conv1_2
+        reach = F.max_pool2d(reach, 3, 1, padding=1)
+    want_nan = F.max_pool2d(reach, 3, 2, padding=1).bool().expand(b, 64, -1, -1)
+    args = [torch.from_numpy(x).to(torch.bfloat16)] + [torch.from_numpy(a) for a in (w1, b1, w2,
+                                                                                      b2)]
+    return [t.to(device) for t in args], want_nan.to(device)
+
+
+def check_block1_nan(device) -> list[str]:
+    """K2 on x with NaN: its NaNs where the plain version's are and where
+    jnp.maximum's semantics put them, and every finite output bit-equal to
+    the plain version's (computed with cuDNN off: a Winograd or FFT
+    convolution would spread a NaN beyond its window). Returns the failed
+    cases."""
+    import torch
+
+    from em_adapt_torch.ops import block1 as k2
+
+    failed = []
+    for name, b, h, nans in K2_NAN_CASES:
+        args, want_nan = nan_case(np.random.default_rng(10 * h + b + 1), b, h, nans, device)
+        before = k2.launches
+        got = k2.block1_fused(*args)
+        torch.cuda.synchronize()
+        if k2.launches != before + 1:
+            raise AssertionError(f"K2 {name}: the block1 kernel was not launched")
+        with torch.backends.cudnn.flags(enabled=False):
+            want = k2.block1_plain(*args)
+        got_nan, plain_nan = got.isnan(), want.isnan()
+        finite = ~plain_nan
+        same_bits = bool(torch.equal(got[finite].view(torch.int16), want[finite].view(torch.int16)))
+        ok = (torch.equal(got_nan, plain_nan) and torch.equal(plain_nan, want_nan)
+              and same_bits and bool(got_nan.any()) and bool(finite.any()))
+        if not ok:
+            failed.append(name)
+        log(f"K2 {name}: {int(got_nan.sum())} NaN outputs of {got.numel()}, the plain "
+            f"version {int(plain_nan.sum())}, jnp.maximum's semantics {int(want_nan.sum())}; NaN "
+            f"positions {'equal' if torch.equal(got_nan, plain_nan) else 'DIFFER'}; the "
+            f"{int(finite.sum())} finite outputs {'bit-equal' if same_bits else 'NOT bit-equal'} "
+            f"to the plain version's")
+    return failed
+
+
+def check_block1_bwd_nan(device) -> dict:
+    """K3 on x with NaN (:data:`K2_NAN_CASES`' first case) against its
+    plain version (cuDNN off): NaN counts per leaf. K3 recomputes y1 and
+    y2 with fmaxf, which maps NaN to 0, so its gradients may be finite
+    where the plain version's are NaN. Measured and logged, not a check:
+    the gap is recorded in ROADMAP.md Queue 3."""
+    import torch
+
+    from em_adapt_torch.ops import block1 as k23
+
+    name, b, h, nans = K2_NAN_CASES[0]
+    rng = np.random.default_rng(10 * h + b + 1)
+    (x, w1, b1, w2, b2), _ = nan_case(rng, b, h, nans, device)
+    oh = (h + 1) // 2
+    dy = torch.from_numpy(rng.normal(size=(b, 64, oh, oh)).astype(np.float32)).to(
+        torch.bfloat16).to(device)
+    got = k23.block1_bwd(x, dy, w1, b1, w2, b2)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = k23.block1_bwd_plain(x, w1, b1, w2, b2, dy)
+    torch.cuda.synchronize()
+    out = {}
+    for leaf, g, w in zip(("dw1", "db1", "dw2", "db2"), got, want):
+        out[leaf] = (int(g.isnan().sum()), int(w.isnan().sum()), g.numel())
+    same = all(k == p for k, p, _ in out.values())
+    log(f"K3 {name}: NaN gradients (kernel, plain, of) per leaf "
+        + ", ".join(f"{leaf} {v}" for leaf, v in out.items())
+        + f": {'the same' if same else 'they differ'} (measured, not checked)")
+    return dict(nan_counts=out, same=same)
+
+
 def check_block1(device, timed: bool) -> dict:
     """K2 against its plain version on the card: within one bf16 step per
     element (an f32 sum of 576 products in another order may round to the
@@ -1653,9 +2012,12 @@ def check_block1(device, timed: bool) -> dict:
             f"to plain, {100 * float((steps <= 1).float().mean()):.4f}% within 1 bf16 step, max "
             f"{worst} steps, max|kernel-plain| {err:.3e} (max|plain| {scale:.3e}, "
             f"min {float(want.float().min()):.3e}){extra}")
-    if failed:
+    nan_failed = check_block1_nan(device)
+    if failed or nan_failed:
         raise AssertionError(f"K2 more than one bf16 step (floored) from plain, under 99.9% "
-                             f"bit-equal, or its y1 not conv1_plain's, in {failed}")
+                             f"bit-equal, or its y1 not conv1_plain's, in {failed}; its NaNs "
+                             f"not the plain version's or its finite outputs not bit-equal in "
+                             f"{nan_failed}")
     if not timed:
         return dict(max_abs_err=max_err)
 
@@ -1836,6 +2198,7 @@ def check_block1_bwd(device, timed: bool) -> dict:
     ftz = {t: build.sass_count(library, f"REDG.E.ADD.{t}.FTZ") for t in ("F32", "F32x2", "F32x4")}
     log(f"K3's SASS: {build.sass_count(library, 'REDG')} REDG reductions into the partial row, "
         f"f32 adds that flush subnormals (.FTZ) among them: {ftz}")
+    check_block1_bwd_nan(device)
     if not timed:
         return dict(max_abs_err=max_err)
 
@@ -2170,6 +2533,7 @@ def main(argv=None) -> int:
     phase("resume bf16", resume, device, card)
     phase("input bf16", input_phase, device, card)
     phase("input VOC", voc_tree_phase, device, card)
+    phase("eval VOC", eval_voc_phase, device, card)
     phase("loop bf16", loop_phase, device, card)
     phase("variants bf16", variants_phase, device, card)
     phase("grads bf16", grads_bf16, device)

@@ -4,7 +4,7 @@
     python -m em_adapt_torch train [--synthetic N] [--steps N] [--resume | --warm-start DIR[:STEP]]
         [--log-jsonl PATH] [--strong-list PATH | --strong-fraction F] [--synthetic-val N]
         [key=value ...]
-    python -m em_adapt_torch eval [--synthetic N] --fixed-size [key=value ...]
+    python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [key=value ...]
 
 ``convert`` writes the index-PNG masks of ``SegmentationClassAug`` from
 VOC's RGB masks and SBD's .mat files. ``train`` trains on the VOC split
@@ -21,9 +21,12 @@ takes only the parameters of a checkpoint. ``--strong-list`` (or
 ``--strong-fraction`` on synthetic data) turns on semi-supervision.
 ``eval`` loads the latest "norm" parameters
 (a fresh init, with a warning, when there are none) and scores them on the
-split "val" (or a synthetic one) at the training resolution: per-class IoU
-and mIoU. Both run on the CUDA card (``--device cpu`` runs on the CPU)
-and copy their batches there through ``DevicePrefetcher`` unless
+split "val" (or a synthetic one) by the VOC protocol (each image at its
+original resolution; ``--crf`` or ``eval.use_crf`` adds the dense CRF, on
+the host or, with ``eval.crf_impl=tpu``, on the card), or at the training
+resolution with ``--fixed-size``: per-class IoU and mIoU. Both run on
+the CUDA card (``--device cpu`` runs on the CPU); training and the fixed
+protocol copy their batches there through ``DevicePrefetcher`` unless
 ``data.prefetch=0``.
 """
 
@@ -53,13 +56,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def cmd_eval(args) -> int:
-    if args.crf:
-        raise _not_ported("--crf", "Queue 1 item 7 (the VOC protocol and the CRF)")
     if args.int8:
         raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
-    if not args.fixed_size:
-        raise _not_ported("the VOC protocol (eval without --fixed-size)",
-                          "Queue 1 item 7 (the VOC protocol and the CRF)")
     cfg = apply_overrides(ExperimentConfig(), args.overrides)
     check_supported(cfg, "eval")
     device = resolve_device(args.device)
@@ -73,15 +71,25 @@ def cmd_eval(args) -> int:
         ds = SyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
         ds = VOCSegmentation(cfg.data, "val")
-    batches = batch_iterator(ds, cfg.data, batch_size=cfg.eval.batch_size, seed=0, epochs=1,
-                             train=False)
-    with (DevicePrefetcher(batches, device, depth=cfg.data.prefetch) if cfg.data.prefetch > 0
-          else contextlib.nullcontext(batches)) as batches:
-        miou, iou = Evaluator(cfg, model).evaluate_fixed(batches)
+    evaluator = Evaluator(cfg, model)
+    crf_applied = False
+    if args.fixed_size:
+        if args.crf:
+            print("warning: --crf is ignored with --fixed-size (the CRF runs only in the "
+                  "original-resolution VOC protocol)", file=sys.stderr)
+        batches = batch_iterator(ds, cfg.data, batch_size=cfg.eval.batch_size, seed=0, epochs=1,
+                                 train=False)
+        with (DevicePrefetcher(batches, device, depth=cfg.data.prefetch)
+              if cfg.data.prefetch > 0 else contextlib.nullcontext(batches)) as batches:
+            miou, iou = evaluator.evaluate_fixed(batches)
+    else:
+        # --crf turns the CRF on; without it eval.use_crf decides.
+        crf_applied = True if args.crf else cfg.eval.use_crf
+        miou, iou = evaluator.evaluate_voc(ds, use_crf=crf_applied)
     for i, v in enumerate(iou):
         name = VOC_CLASS_NAMES[i] if i < len(VOC_CLASS_NAMES) else str(i)
         print(f"  IoU[{name}] = {v:.4f}")
-    print(f"mIoU = {miou:.4f}")
+    print(f"mIoU = {miou:.4f}" + (" (with CRF)" if crf_applied else ""))
     return 0
 
 
@@ -103,10 +111,12 @@ def parse_warm_start(spec: str) -> tuple[str, int | None]:
 
 
 def make_eval_fn(cfg: ExperimentConfig, args, device):
-    """The periodic eval of ``train``: the fixed-resolution mIoU
-    (``Evaluator.confusion_fixed``, ``miou_from_confusion``) of the
-    training model on the split "val" (or ``--synthetic-val`` synthetic
-    images, default a quarter of ``--synthetic``, at least 2)."""
+    """The periodic eval of ``train``: the mIoU of the training model on
+    the split "val" (or ``--synthetic-val`` synthetic images, default a
+    quarter of ``--synthetic``, at least 2), at the fixed resolution
+    (``Evaluator.confusion_fixed``) or, with ``train.eval_protocol=voc``,
+    by the VOC protocol (``Evaluator.confusion_voc``), so that "best"
+    follows the headline number's protocol."""
     if args.synthetic:
         n_val = args.synthetic_val if args.synthetic_val is not None else max(args.synthetic // 4, 2)
         val = SyntheticVOC(n_val, cfg.model.num_classes, seed=cfg.train.seed + 1)
@@ -114,6 +124,8 @@ def make_eval_fn(cfg: ExperimentConfig, args, device):
         val = VOCSegmentation(cfg.data, "val")
 
     def eval_fn(state) -> float:
+        if cfg.train.eval_protocol == "voc":
+            return miou_from_confusion(Evaluator(cfg, state.model).confusion_voc(val))[0]
         batches = batch_iterator(val, cfg.data, batch_size=cfg.eval.batch_size, seed=0,
                                  epochs=1, train=False)
         with (DevicePrefetcher(batches, device, depth=cfg.data.prefetch)
@@ -215,8 +227,9 @@ def main(argv: list[str] | None = None) -> int:
     ev.add_argument("--synthetic", type=int, default=None, metavar="N",
                     help="evaluate on N synthetic images instead of the VOC tree")
     ev.add_argument("--fixed-size", action="store_true",
-                    help="evaluate at the training resolution (the protocol ported)")
-    ev.add_argument("--crf", action="store_true", help="denseCRF (not ported yet)")
+                    help="evaluate at the training resolution instead of the VOC protocol")
+    ev.add_argument("--crf", action="store_true",
+                    help="refine with the dense CRF (VOC protocol; where: eval.crf_impl)")
     ev.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
     ev.add_argument("--device", default=None, help="default: the CUDA card")
     ev.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")

@@ -131,9 +131,9 @@ class TrainConfig:
     #: reference created a "best" saver but never used it, network.py:102).
     #: None disables periodic eval.
     eval_every_steps: int | None = None
-    #: Protocol of the periodic eval: "fixed" (at the training resolution).
-    #: "voc" (per image at its original resolution) is ROADMAP.md Queue 1
-    #: item 7.
+    #: Protocol of the periodic eval: "fixed" (at the training resolution)
+    #: or "voc" (per image at its original resolution, the headline
+    #: number's protocol; the CRF as ``eval.use_crf`` says).
     eval_protocol: str = "fixed"
     #: Accepted so that one config file drives both packages, and not
     #: ported: levers of the JAX package's TPU dispatch (donated buffers,
@@ -165,11 +165,36 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """Prediction + mIoU (``em_adapt_tpu/config.py:271-294``); the CRF
-    fields come with the CRF (ROADMAP.md Queue 1 item 7)."""
+    """Prediction + mIoU + optional denseCRF (``em_adapt_tpu/config.py:
+    271-308``). The CRF's hyperparameters are the reference's (reference
+    network.py:63): bilateral sxy 121, srgb 5, compat 10; spatial sxy 3,
+    compat 3; 10 mean-field iterations."""
 
     batch_size: int = 6
     use_crf: bool = False
+    crf_bi_sxy: float = 121.0
+    crf_bi_srgb: float = 5.0
+    crf_bi_compat: float = 10.0
+    crf_g_sxy: float = 3.0
+    crf_g_compat: float = 3.0
+    crf_iterations: int = 10
+    #: Host threads refining images in parallel in the VOC protocol (the
+    #: native lattice releases the GIL).
+    crf_workers: int = 4
+    #: Where the VOC protocol's CRF runs: "host" (numpy/scipy and the
+    #: native permutohedral lattice on a thread pool) or "tpu", the name
+    #: the JAX package gives its accelerator path, which here means the
+    #: model's device, the card: upsample, softmax, mean-field CRF and
+    #: argmax there (``eval/crf_device.py``), only uint8 label maps copied
+    #: back. One config file drives both packages.
+    crf_impl: str = "host"
+    #: The largest padding bucket (H, W) of the on-card CRF; every image
+    #: must fit it (VOC's largest is 500x500).
+    crf_bucket: tuple[int, int] = (512, 512)
+    #: Smaller buckets of the on-card CRF: an image pads into the
+    #: smallest-area bucket that holds it, else into ``crf_bucket``. A
+    #: bucket larger in area than ``crf_bucket`` is dropped.
+    crf_buckets: tuple[tuple[int, int], ...] = ((384, 512), (512, 384))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,10 +225,6 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
          "Queue 1 item 4 (the native E-step binding)"),
         (train and cfg.estep.method == "fixed", "estep.method='fixed'",
          "Queue 1 item 3 (EM-Fixed)"),
-        (train and cfg.train.eval_protocol == "voc", "train.eval_protocol='voc'",
-         "Queue 1 item 7 (the VOC protocol and the CRF)"),
-        (not train and cfg.eval.use_crf, "eval.use_crf=True",
-         "Queue 1 item 7 (the VOC protocol and the CRF)"),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -218,6 +239,8 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         raise ValueError(
             f"model.block1_impl={cfg.model.block1_impl!r}: expected 'auto', 'xla' or 'pallas'"
         )
+    if cfg.eval.crf_impl not in ("host", "tpu"):  # a typo would select the host CRF
+        raise ValueError(f"eval.crf_impl must be 'host' or 'tpu', got {cfg.eval.crf_impl!r}")
     if not train:
         return
     if cfg.estep.method != "adaptive":
@@ -226,7 +249,7 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         raise ValueError(
             f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax' or 'pallas'"
         )
-    if cfg.train.eval_protocol != "fixed":
+    if cfg.train.eval_protocol not in ("fixed", "voc"):
         raise ValueError(
             f"train.eval_protocol={cfg.train.eval_protocol!r}: expected 'fixed' or 'voc'"
         )

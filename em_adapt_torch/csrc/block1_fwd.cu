@@ -157,6 +157,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h2);
 }
 
+// max(a, b) that propagates NaN, as jnp.maximum and torch's ReLU and max
+// pool do (fmaxf returns the other operand). PTX's max.NaN is max.f32 with
+// a NaN operand giving NaN; on numbers, +0 and -0 included, it is max.f32.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Word offset (uint32 = 2 bf16) of the y1 row under y2 position m, tap (0, 0).
 __device__ __forceinline__ int y1_row_words(int m) {
   m = m < kM ? m : kM - 1;  // the pad row reads a valid position; discarded
@@ -254,8 +263,8 @@ __device__ __forceinline__ void conv1_1(const float* xs, const float* w1s, const
       uint32_t packed[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float lo = valid ? fmaxf(acc[s][2 * j] + b1s[cg * 8 + 2 * j], 0.f) : 0.f;
-        const float hi = valid ? fmaxf(acc[s][2 * j + 1] + b1s[cg * 8 + 2 * j + 1], 0.f) : 0.f;
+        const float lo = valid ? max_nan(acc[s][2 * j] + b1s[cg * 8 + 2 * j], 0.f) : 0.f;
+        const float hi = valid ? max_nan(acc[s][2 * j + 1] + b1s[cg * 8 + 2 * j + 1], 0.f) : 0.f;
         packed[j] = pack_bf16(lo, hi);
       }
       *reinterpret_cast<uint4*>(y1s + p[s] * kRow + cg * 8) =
@@ -398,8 +407,8 @@ block1_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int n = j * 8 + tig * 2;
-          const float lo = valid ? fmaxf(acc[t][j][2 * half] + b2s[n], 0.f) : 0.f;
-          const float hi = valid ? fmaxf(acc[t][j][2 * half + 1] + b2s[n + 1], 0.f) : 0.f;
+          const float lo = valid ? max_nan(acc[t][j][2 * half] + b2s[n], 0.f) : 0.f;
+          const float hi = valid ? max_nan(acc[t][j][2 * half + 1] + b2s[n + 1], 0.f) : 0.f;
           y2w[m * (kRow / 2) + n / 2] = pack_bf16(lo, hi);
         }
       }
@@ -413,14 +422,14 @@ block1_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     for (int p = 0; p < kTP; ++p) {
       const int P = o.P0 + p;
       if (P >= OH || Q >= OW) continue;
-      float lo = 0.f, hi = 0.f;  // every y2 value is >= 0
+      float lo = 0.f, hi = 0.f;  // every y2 value is >= 0 or NaN
 #pragma unroll
       for (int u = 0; u < 3; ++u)
 #pragma unroll
         for (int v = 0; v < 3; ++v) {
           const uint32_t pair = y2w[((2 * p + u) * kY2W + 2 * q + v) * (kRow / 2) + c2];
-          lo = fmaxf(lo, __uint_as_float(pair << 16));
-          hi = fmaxf(hi, __uint_as_float(pair & 0xffff0000u));
+          lo = max_nan(lo, __uint_as_float(pair << 16));
+          hi = max_nan(hi, __uint_as_float(pair & 0xffff0000u));
         }
       ob[static_cast<size_t>(P) * OW + Q] = __float2bfloat16_rn(lo);
       ob[static_cast<size_t>(OH + P) * OW + Q] = __float2bfloat16_rn(hi);

@@ -129,7 +129,10 @@ def preprocess_eval(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Eval-time preprocessing: fixed resize + BGR + mean, no augmentation
     (reference dataset.py:130). ``wire_dtype="uint8"`` defers the BGR+mean
-    to the device (see :func:`augment_train`)."""
+    to the device (see :func:`augment_train`). ``label`` None gives a None
+    label (the VOC protocol keeps the original)."""
+    if label is None:
+        return _finalize_wire(resize_bilinear_np(img, input_size), None, wire_dtype)
     lab = label[:, :, None] if label.ndim == 2 else label
     return _finalize_wire(resize_bilinear_np(img, input_size),
                           resize_nearest_np(lab, input_size), wire_dtype)

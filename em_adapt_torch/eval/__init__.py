@@ -1,1 +1,1 @@
-"""Evaluation: confusion matrix, mIoU and the fixed-resolution protocol."""
+"""Evaluation: confusion matrix and mIoU, the fixed-resolution and VOC protocols, the dense CRF on the host and on a device."""

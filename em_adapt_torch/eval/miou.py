@@ -40,21 +40,34 @@ def miou_from_confusion(cm) -> tuple[float, np.ndarray]:
 
 class ConfusionAccumulator:
     """Streaming confusion matrix over batches, int64 on the device of the
-    first predictions it is given."""
+    first predictions it is given, plus an int64 host part
+    (:meth:`update_host`)."""
 
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
         self._total: torch.Tensor | None = None
+        self._host = np.zeros((num_classes, num_classes), np.int64)
 
     def update(self, pred: torch.Tensor, gt: torch.Tensor) -> None:
         cm = confusion_matrix(pred, gt, self.num_classes)
         self._total = cm if self._total is None else self._total + cm
 
+    def update_host(self, pred: np.ndarray, gt: np.ndarray) -> None:
+        """Add host arrays of any shape (the VOC protocol's per-image
+        original sizes) with one int64 ``np.bincount``, the semantics of
+        :func:`confusion_matrix`: gt outside [0, C) is void, and so is an
+        out-of-range prediction. Summed into the total ``update`` feeds."""
+        pred = np.asarray(pred).reshape(-1).astype(np.int64)
+        gt = np.asarray(gt).reshape(-1).astype(np.int64)
+        c = self.num_classes
+        valid = (gt >= 0) & (gt < c) & (pred >= 0) & (pred < c)
+        self._host += np.bincount(gt[valid] * c + pred[valid], minlength=c * c).reshape(c, c)
+
     def matrix(self) -> np.ndarray:
         """The accumulated [C, C] int64 confusion matrix (host copy)."""
         if self._total is None:
-            return np.zeros((self.num_classes, self.num_classes), np.int64)
-        return self._total.cpu().numpy()
+            return self._host.copy()
+        return self._total.cpu().numpy() + self._host
 
     def result(self) -> tuple[float, np.ndarray]:
         return miou_from_confusion(self.matrix())

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's CUDA sources and its host library at first use and
+load them with ctypes.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -9,12 +10,20 @@ into a library of its own, whose file name carries them; with none the
 library is the production one. A failed build raises. No
 ``--use_fast_math``: flush-to-zero would change subnormal values, and
 the E-step's thresholds must equal ``np.partition``'s bits.
+
+:func:`build_host` compiles a C++ source of the repository's ``native/``
+(the permutohedral lattice of the host CRF) with ``g++`` and the flags of
+``native/Makefile`` into the same directory, named by a hash of the
+source, the flags and the CPU that ``-march=native`` resolves to (with
+PyTorch's OpenMP runtime where the compiler has none); nothing is written
+under ``native/``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -27,6 +36,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+NATIVE = Path(__file__).resolve().parents[2] / "native"
+#: native/Makefile's CXXFLAGS and REQFLAGS, warnings aside.
+CXX_FLAGS = ("-O3", "-std=c++17", "-march=native", "-fPIC", "-fopenmp", "-shared")
 
 _lock = threading.Lock()
 _loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
@@ -102,3 +115,67 @@ def sass_count(library: Path, opcode: str) -> int:
     return sum(1 for line in proc.stdout.splitlines()
                if any(w == opcode or w.startswith(opcode + ".")
                       for w in line.replace(";", " ").split()))
+
+
+def _cxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("g++ not found: the permutohedral lattice needs a C++ compiler")
+    return found
+
+
+def _native_target(cxx: str) -> str:
+    """What ``-march=native`` means on this host, so that a library built
+    for another CPU is never loaded here."""
+    proc = subprocess.run([cxx, "-march=native", "-Q", "--help=target"], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.stdout
+
+
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _torch_openmp() -> Path | None:
+    """The OpenMP runtime (libgomp) that the PyTorch wheel ships, if any."""
+    spec = importlib.util.find_spec("torch")
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    root = Path(next(iter(spec.submodule_search_locations)))
+    found = sorted(root.glob("lib/libgomp*.so*")) + sorted(
+        root.parent.glob("torch.libs/libgomp*.so*"))
+    return found[0] if found else None
+
+
+def build_host(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with ``g++`` and :data:`CXX_FLAGS`
+    unless it is built already; the library's path. Where the compiler has
+    no OpenMP runtime of its own (no ``libgomp.spec``, so that g++ cannot
+    link ``-fopenmp``), the source is compiled with ``-fopenmp`` all the
+    same and linked against PyTorch's libgomp, so the library is never
+    quietly serial. Concurrent builds (several test workers) each write a
+    file of their own and rename it into place. A failed build raises."""
+    cxx = _cxx()
+    src = NATIVE / f"{name}.cpp"
+    key = src.read_bytes() + " ".join(CXX_FLAGS).encode() + _native_target(cxx).encode()
+    target = BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = _run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)])
+    gomp = _torch_openmp() if "libgomp.spec" in proc.stdout else None
+    if proc.returncode != 0 and gomp is not None:
+        obj = tmp.with_suffix(".o")
+        proc = _run([cxx, *(f for f in CXX_FLAGS if f != "-shared"), "-c", "-o", str(obj),
+                     str(src)])
+        if proc.returncode == 0:
+            proc = _run([cxx, "-shared", "-o", str(tmp), str(obj), str(gomp),
+                         f"-Wl,-rpath,{gomp.parent}"])
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ build of native/{name}.cpp failed (exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, target)
+    return target

@@ -83,8 +83,8 @@ def test_cli_semi_supervised_eval_best_and_warm_start(tmp_path, capsys, monkeypa
 def test_config_accepts_the_ported_keys_and_names_item_7_for_the_voc_protocol():
     """The JAX package's TrainConfig keys load with its defaults; the TPU
     dispatch levers are accepted and not ported; optim.lr_multipliers no
-    longer raises; train.eval_protocol="voc" raises and names Queue 1
-    item 7, another value is refused."""
+    longer raises; train.eval_protocol="voc" (Queue 1 item 7, ported) is
+    accepted, another value is refused."""
     import dataclasses
 
     from em_adapt_torch import config as pcfg
@@ -98,8 +98,8 @@ def test_config_accepts_the_ported_keys_and_names_item_7_for_the_voc_protocol():
         "optim.lr_multipliers=true", "train.tag_warmup_steps=5", "train.eval_every_steps=10"])
     pcfg.check_supported(cfg)
     voc = pcfg.apply_overrides(pcfg.ExperimentConfig(), ["train.eval_protocol=voc"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pcfg.check_supported(voc)
+    pcfg.check_supported(voc)
+    assert voc.train.eval_protocol == "voc"
     with pytest.raises(ValueError, match="eval_protocol"):
         pcfg.check_supported(pcfg.apply_overrides(pcfg.ExperimentConfig(),
                                                   ["train.eval_protocol=other"]))

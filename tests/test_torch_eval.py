@@ -149,22 +149,33 @@ def test_evaluate_fixed_matches_jax_evaluator():
     np.testing.assert_array_equal(got, want)
     miou, _ = ev.evaluate_fixed(batches())
     assert miou == miou_from_confusion(want)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ev.evaluate_voc(SyntheticVOC(2, 4))
+    # The VOC protocol (original sizes, no CRF) runs too, and equals JAX's.
+    voc = SyntheticVOC(2, 4)
+    want_voc = JaxEvaluator(jc, jmodel).confusion_voc(jax.tree.map(jnp.asarray, params), voc)
+    np.testing.assert_array_equal(ev.confusion_voc(voc), want_voc)
+    assert ev.evaluate_voc(voc)[0] == miou_from_confusion(want_voc)[0]
 
 
 def test_eval_mode_accepts_bf16_and_pallas_training_does_not():
     """Both modes accept bf16 with the fused block1 now that it has its
-    backward (K3); the CRF still waits for its item."""
+    backward (K3); eval accepts the CRF, on the host and on the card, with
+    the JAX package's fields and defaults, and refuses a typo in
+    eval.crf_impl."""
+    import dataclasses
+
     cfg = pcfg.apply_overrides(pcfg.ExperimentConfig(), ["model.compute_dtype=bfloat16",
                                                          "model.block1_impl=pallas"])
     pcfg.check_supported(cfg, "eval")
     pcfg.check_supported(cfg, "train")
-    crf = pcfg.apply_overrides(pcfg.ExperimentConfig(), ["eval.use_crf=true"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    for impl in ("host", "tpu"):
+        crf = pcfg.apply_overrides(pcfg.ExperimentConfig(),
+                                   ["eval.use_crf=true", f"eval.crf_impl={impl}"])
         pcfg.check_supported(crf, "eval")
+    with pytest.raises(ValueError, match="eval.crf_impl must be 'host' or 'tpu'"):
+        pcfg.check_supported(pcfg.apply_overrides(pcfg.ExperimentConfig(),
+                                                  ["eval.crf_impl=gpu"]), "eval")
     port, ref = pcfg.EvalConfig(), jcfg.EvalConfig()
-    assert (port.batch_size, port.use_crf) == (ref.batch_size, ref.use_crf)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
 def test_eval_cli_on_cpu(capsys, tmp_path):
@@ -182,8 +193,14 @@ def test_eval_cli_on_cpu(capsys, tmp_path):
         "  IoU[background", "  IoU[aeroplane", "  IoU[bicycle", "  IoU[bird"]
     miou = float(out[-1].removeprefix("mIoU = "))
     assert 0.0 <= miou <= 1.0
-    for flag, item in (("--crf", "item 7"), ("--int8", "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(args + [flag])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main([a for a in args if a != "--fixed-size"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        main(args + ["--int8"])
+    # --crf with --fixed-size warns and scores the fixed protocol as before.
+    assert main(args + ["--crf"]) == 0
+    captured = capsys.readouterr()
+    assert "warning: --crf is ignored with --fixed-size" in captured.err
+    assert captured.out.splitlines()[-1] == out[-1]
+    # Without --fixed-size the VOC protocol runs (original sizes, no CRF).
+    assert main([a for a in args if a != "--fixed-size"]) == 0
+    voc = capsys.readouterr().out.splitlines()
+    assert len(voc) == len(out) and voc[-1].startswith("mIoU = ") and "CRF" not in voc[-1]

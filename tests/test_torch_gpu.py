@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: the E-step kernel K1 against its plain
 version and the reference goldens, the fused block1 forward K2 and
-backward K3 against their plain versions, and a bf16 training step
-through them. Every test carries the ``gpu`` marker and skips without a
+backward K3 against their plain versions (K2 on NaN inputs too), a bf16
+training step through them, and the VOC protocol with the dense CRF on
+the card. Every test carries the ``gpu`` marker and skips without a
 card (a CUDA kernel has no CPU mode).
 
 The file needs neither JAX nor the shared conftest, so on a machine with
@@ -693,8 +694,9 @@ def test_nan_on_a_save_step_is_never_written(cuda_device, tmp_path, tag):
     """Step 1, after which "norm" (every 2) or "best" (an eval every 2)
     would be saved, leaves NaN in the params and in its loss: fit raises
     and nothing is written. (The NaN is put into the state after the
-    step's launch: a NaN image does not reach the loss in the same step
-    in bf16, since the fused block 1's ReLU maps NaN to 0.)"""
+    step's launch, so that the params and the loss of that very step are
+    non-finite; a NaN image would reach the loss in its own step too, now
+    that the fused block 1 passes NaN through as jnp.maximum does.)"""
     import dataclasses
 
     trainer = _small_trainer(cuda_device, tmp_path, compute_dtype="bfloat16",
@@ -719,3 +721,74 @@ def test_nan_on_a_save_step_is_never_written(cuda_device, tmp_path, tag):
                     eval_fn=lambda s: 1.0)
     assert trainer.checkpointer.all_steps("norm") == trainer.checkpointer.all_steps("best") == []
     assert not (tmp_path / "best_metric.json").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(SMOKE.K2_NAN_CASES)))
+def test_block1_kernel_passes_nan_through_as_plain(cuda_device, case):
+    """K2 on x with NaN: NaN exactly where the plain version (cuDNN off)
+    and jnp.maximum's semantics put it, and every finite output bit-equal
+    to the plain version's (integer-valued inputs, so the sums are exact)."""
+    from em_adapt_torch.ops import block1 as k2
+
+    name, b, h, nans = SMOKE.K2_NAN_CASES[case]
+    args, want_nan = SMOKE.nan_case(np.random.default_rng(10 * h + b + 1), b, h, nans,
+                                    cuda_device)
+    got = k2.block1_fused(*args)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = k2.block1_plain(*args)
+    assert bool(want_nan.any()) and bool((~want_nan).any())
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(want.isnan(), want_nan)
+    finite = ~want_nan
+    assert torch.equal(got[finite].view(torch.int16), want[finite].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_crf_device_on_the_card_matches_the_cpu(cuda_device):
+    """The device CRF on the card against the same function on the CPU, on
+    the committed fault fixture (6 images, 10 iterations): within 1e-5."""
+    from em_adapt_torch.eval.crf_device import make_crf_device
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "crf_tpu_fault_inputs.npz"))
+    mask = np.ones(d["probs"].shape[:3], np.float32)
+    got = make_crf_device(device=cuda_device)(d["probs"], d["rgb"], mask)
+    want = make_crf_device(device="cpu")(d["probs"], d["rgb"], mask)
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_voc_protocol_on_the_card(cuda_device):
+    """A small model on the card: the VOC protocol without the CRF, with
+    the host CRF (on the lattice) and with the card's CRF; the card's
+    labels agree with the host grid CRF's at >= 99.9% of each image."""
+    from em_adapt_torch.config import EvalConfig, ExperimentConfig, ModelConfig
+    from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
+    from em_adapt_torch.data.pipeline import SyntheticVOC
+    from em_adapt_torch.eval import permutohedral
+    from em_adapt_torch.eval.crf import dense_crf
+    from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.models.deeplab import build_model
+
+    model_cfg = ModelConfig(num_classes=4, input_size=(33, 33), fc6_channels=16,
+                            width_multiplier=0.25, init_scheme="he")
+    model = build_model(model_cfg, 0, cuda_device)
+    data = SyntheticVOC(3, 4, seed=1)
+    nonvoid = sum(int((data.load_raw(i)[1] < 4).sum()) for i in range(3))
+    before = permutohedral.lattices_built
+    for impl, use_crf in (("host", False), ("host", True), ("tpu", True)):
+        cfg = ExperimentConfig(model=model_cfg, eval=EvalConfig(crf_impl=impl, crf_iterations=3,
+                                                                batch_size=2))
+        cm = Evaluator(cfg, model).confusion_voc(data, use_crf=use_crf)
+        assert cm.sum() == nonvoid
+    assert permutohedral.lattices_built == before + 3
+    ev = Evaluator(ExperimentConfig(model=model_cfg, eval=EvalConfig(crf_impl="tpu",
+                                                                     crf_iterations=3)), model)
+    img, lab = data.load_raw(0)
+    lg = ev.logits(preprocess_eval(img, None, input_size=(33, 33))[0][None])
+    oh, ow = lab.shape
+    got = ev.voc_post_device(lg, [img], (512, 512))[0, :oh, :ow]
+    up = resize_bilinear_np(lg[0].cpu().numpy(), (oh, ow))
+    e = np.exp(up - up.max(-1, keepdims=True))
+    want = dense_crf(e / e.sum(-1, keepdims=True), img, ev.cfg.eval, method="grid").argmax(-1)
+    assert (got == want).mean() >= 0.999
