@@ -10,7 +10,11 @@ times K3 part by part (``em_adapt_torch/tools/bench_block1_bwd_parts.py``),
 and drives the port's paths: full-width DeepLab-LargeFOV training at
 321x321, batch 6, accumulation 5, through ``Trainer.fit`` in f32 (the
 E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
-backward K3), batches copied through ``DevicePrefetcher``; the input
+backward K3), batches copied through ``DevicePrefetcher``; bf16 training
+at 513x513 with remat and the uint8 wire (K1 over a cluster of CTAs an
+image, K2, K3; phase "train highres"), EM-Fixed at 321x321 (no K1;
+"train fixed") and the native E-step's labels against K1's ("estep
+native"); the input
 layer (the producer alone, ``fit`` with and without the prefetcher, and
 ``convert``, ``train`` and ``eval`` on a VOC-layout tree it writes); the
 VOC protocol (each image at its original size) without the CRF, with the
@@ -137,6 +141,10 @@ def realistic_batch(rng: np.random.Generator, b: int, hw: int = 41, c: int = 21)
 #: one, 1681 (41x41, the training path's) the four-pixel one.
 K1_EDGE_CASES = ("ties", "zero_diffs", "subnormal", "inf", "k0", "k_last", "void_rows")
 K1_EDGE_SIZES = ((7, 7), (16, 32), (20, 30), (32, 32), (41, 41))
+#: K1's edge cases beyond one CTA (an image over a cluster of CTAs): HW
+#: 2049 (two CTAs, the second one pixel short of the first), 4096 (two
+#: CTAs of 2048) and 4225 (65x65, the 513x513 input's score map: three).
+K1_CLUSTER_SIZES = ((3, 683), (64, 64), (65, 65))
 #: The E-step's keywords on the training path (the reference recipe).
 K1_RECIPE = dict(bg_p=0.4, fg_p=0.2, num_iter=5, suppress_others=True, margin_others=1e-5)
 
@@ -242,7 +250,8 @@ def present_visits(label, orders) -> list[int]:
 def k1_cases():
     """(name, NHWC scores, labels, orders, E-step keywords, golden output
     or None) of every case K1 is held on: ``realistic_batch`` at B=6 and
-    B=30, one present class, the five goldens and the edge cases."""
+    B=30, one present class, the five goldens, the edge cases (in one CTA
+    and over clusters) and ``realistic_batch`` at B=6 and 65x65."""
     rng = np.random.default_rng(1234)
     cases = [(f"random_b{b}", *realistic_batch(rng, b), dict(K1_RECIPE), None) for b in (6, 30)]
     single = rng.normal(size=(1, 8, 8, 3)).astype(np.float32)
@@ -259,15 +268,18 @@ def k1_cases():
         cases.append((os.path.basename(path), z["scores"].astype(np.float32),
                       z["label"].astype(np.float32), z["orders"].astype(np.int32), kw, z["out"]))
     for name in K1_EDGE_CASES:
-        for h, w in K1_EDGE_SIZES:
+        for h, w in K1_EDGE_SIZES + K1_CLUSTER_SIZES:
             cases.append((f"edge {name} {h}x{w}", *k1_edge_case(name, h, w), None))
+    cases.append(("random_b6 65x65", *realistic_batch(np.random.default_rng(65), 6, hw=65),
+                  dict(K1_RECIPE), None))
     return cases
 
 
 def check_estep(device) -> dict:
     """K1 against its plain version (and the goldens, and np.partition) on
-    the card, on ``k1_cases``; times on ``realistic_batch``, with its
-    fixed cost and the cost of one present visit."""
+    the card, on ``k1_cases``; times on ``realistic_batch`` at 41x41 and
+    65x65 (one CTA an image, and a cluster), B=6 and B=30, with its fixed
+    cost and the cost of one present visit."""
     import torch
 
     from em_adapt_torch.ops import estep_kernel as k1
@@ -310,45 +322,55 @@ def check_estep(device) -> dict:
                 raise AssertionError(f"{name}: kernel scores differ from the golden by {gerr}")
             extra = f", vs golden {gerr:.3e}"
         max_err = max(max_err, err)
+        ctas = k1.ctas_per_image(scores.shape[3], scores.shape[1] * scores.shape[2])
         log(f"K1 {name} {tuple(scores.shape)}: argmax identical, thresholds bit-equal "
-            f"(plain and np.partition), max|kernel-plain| {err:.3e}{extra}")
+            f"(plain and np.partition), max|kernel-plain| {err:.3e}{extra}"
+            + (f"; one launch, a cluster of {ctas} CTAs an image" if ctas > 1 else ""))
 
     rounds = k1.search_rounds(k1._lib().em_estep_digit_bits())
     log(f"K1 search: {k1.DIGIT_BITS} threshold bits a block round, {rounds} dependent block "
         f"rounds a present class visit (the bisection: 31)")
     timing = {}
-    for b in (6, 30):
-        scores, label, orders = realistic_batch(np.random.default_rng(b), b)
-        args, kw = k1_inputs(scores, label, orders, device, **K1_RECIPE)
-        def run():
-            return k1.estep_kernel(*args, **kw)
+    for side in (41, 65):  # the 321x321 and the 513x513 input's score maps
+        for b in (6, 30):
+            seed = b if side == 41 else 100 * side + b
+            scores, label, orders = realistic_batch(np.random.default_rng(seed), b, hw=side)
+            args, kw = k1_inputs(scores, label, orders, device, **K1_RECIPE)
 
-        ms = cuda_ms_per_launch(run, launches=100, reps=20, warmup=5)
-        call_ms = cuda_ms(run, reps=50, warmup=5)
-        prof_ms = profiled_kernel_ms(run, "estep_kernel", launches=50)
-        plain_ms = cuda_ms(lambda: k1.estep_plain(*args, **kw), reps=5, warmup=1)
-        hw = 41 * 41
-        present = present_visits(label, orders)
-        visits = 5 * 21
-        bytes_moved = 4 * (2 * b * 21 * hw + b * hw + visits + 1 + b * visits)
-        ops = 31 * hw * sum(present)
-        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / SIMT_OPS_PER_S) * 1e3
-        bound_by = "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / SIMT_OPS_PER_S else "operations"
-        fixed_ms, visit_us = k1_split(args, kw, prof_ms, present)
-        timing[b] = dict(ms=ms, prof_ms=prof_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, present=present, fixed_ms=fixed_ms,
-                         visit_us=visit_us)
-        log(f"K1 time B={b}: kernel {ms:.4f} ms per launch (100 back-to-back launches "
-            f"between CUDA events, median of 20), {call_ms:.4f} ms per single call "
-            f"(events around each call, median of 50), profiler device time "
-            f"{measured(prof_ms, 4, 'ms')} "
-            f"(mean of 50); plain {plain_ms:.2f} ms (median of 5); bound {bound_ms:.6f} ms "
-            f"by {bound_by} ({bytes_moved} B, {ops} compares over {sum(present)} "
-            f"present visits, most in one image {max(present)})")
-        log(f"K1 cost B={b}: fixed {measured(fixed_ms, 4, 'ms')} (profiler device time, "
-            f"all-void labels, no visit runs), {measured(visit_us, 3, 'us')} a present visit "
-            f"((profiler time - fixed) / {max(present)} visits of the busiest image), "
-            f"{rounds} block rounds a visit")
+            def run():
+                return k1.estep_kernel(*args, **kw)
+
+            ms = cuda_ms_per_launch(run, launches=100, reps=20, warmup=5)
+            call_ms = cuda_ms(run, reps=50, warmup=5)
+            prof_ms = profiled_kernel_ms(run, "estep_kernel", launches=50)
+            plain_ms = cuda_ms(lambda: k1.estep_plain(*args, **kw), reps=5, warmup=1)
+            hw = side * side
+            present = present_visits(label, orders)
+            visits = 5 * 21
+            bytes_moved = 4 * (2 * b * 21 * hw + b * hw + visits + 1 + b * visits)
+            ops = 31 * hw * sum(present)
+            bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / SIMT_OPS_PER_S) * 1e3
+            bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / SIMT_OPS_PER_S
+                        else "operations")
+            fixed_ms, visit_us = k1_split(args, kw, prof_ms, present)
+            ctas = k1.ctas_per_image(21, hw)
+            timing[b if side == 41 else (b, side)] = dict(
+                ms=ms, prof_ms=prof_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                present=present, fixed_ms=fixed_ms, visit_us=visit_us, ctas=ctas)
+            where = f"B={b}" if side == 41 else f"B={b} {side}x{side}"
+            smem = k1._lib().em_estep_smem_bytes(21, hw)
+            log(f"K1 time {where}: kernel {ms:.4f} ms per launch (100 back-to-back launches "
+                f"between CUDA events, median of 20; {ctas} CTA{'s' * (ctas > 1)} an image, "
+                f"{smem} B of shared memory each), "
+                f"{call_ms:.4f} ms per single call (events around each call, median of 50), "
+                f"profiler device time {measured(prof_ms, 4, 'ms')} "
+                f"(mean of 50); plain {plain_ms:.2f} ms (median of 5); bound {bound_ms:.6f} ms "
+                f"by {bound_by} ({bytes_moved} B, {ops} compares over {sum(present)} "
+                f"present visits, most in one image {max(present)})")
+            log(f"K1 cost {where}: fixed {measured(fixed_ms, 4, 'ms')} (profiler device time, "
+                f"all-void labels, no visit runs), {measured(visit_us, 3, 'us')} a present "
+                f"visit ((profiler time - fixed) / {max(present)} visits of the busiest image), "
+                f"{rounds} block rounds a visit")
     return dict(max_abs_err=max_err, timing=timing, rounds=rounds)
 
 
@@ -600,6 +622,176 @@ def time_k1_on(args, kw) -> dict:
     fixed_ms, visit_us = k1_split(args, kw, prof_ms, present)
     return dict(ms=ms, prof_ms=prof_ms, present=present, shape=tuple(scores.shape),
                 fixed_ms=fixed_ms, visit_us=visit_us)
+
+
+#: Phase "train highres": the 513x513 path at full width, bf16 with the
+#: fused block 1 (block1_impl "auto" takes K2 and K3 there), per-block
+#: remat and the uint8 wire, batch 6, through the overrides a user gives;
+#: HIGHRES_STEPS steps through fit, then HIGHRES_CACHED on one cached
+#: batch (wall and peak memory) and HIGHRES_PROFILED under the profiler.
+HIGHRES_OVERRIDES = ("model.compute_dtype=bfloat16", "model.input_size=(513,513)",
+                     "model.remat=true", "data.wire_dtype=uint8")
+HIGHRES_STEPS, HIGHRES_CACHED, HIGHRES_PROFILED = 4, 3, 2
+#: Phase "train fixed": EM-Fixed at full width at 321x321, bf16.
+FIXED_OVERRIDES = ("model.compute_dtype=bfloat16", "estep.method=fixed")
+FIXED_STEPS = 4
+
+
+def train_variant(device, card: str, tag: str, overrides, steps: int,
+                  per_step: dict[str, int]) -> dict:
+    """``steps`` full-width steps through ``Trainer.fit`` on SyntheticVOC
+    batches under ``overrides`` (a log window a step): the launches of K1,
+    K2 and K3 in every step as ``per_step`` says, finite losses, the first
+    loss ln(C) + wd * L2 within 1e-3 (the reference init's logits are
+    ~1e-11, a uniform softmax), the median synchronized wall per step
+    (steps 1 on, producer included) and the peak memory. Returns the
+    trainer, the state, a cached device batch and the numbers."""
+    import torch
+
+    from em_adapt_torch.config import ExperimentConfig, apply_overrides
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.trainer import Trainer, to_device
+
+    cfg = apply_overrides(ExperimentConfig(), [*overrides, "train.log_every_steps=1"])
+    bs = cfg.train.batch_size
+    data = SyntheticVOC(bs * (steps + 1), cfg.model.num_classes, seed=0)
+    trainer = Trainer(cfg, device=device, steps_per_epoch=len(data) // bs)
+    state = trainer.init_state()
+    with torch.no_grad():
+        l2 = float(state.model.weight_l2())
+    log(f"{tag}: overrides {list(overrides)}: input {cfg.model.input_size}, batch {bs}, "
+        f"{cfg.model.compute_dtype}, remat {cfg.model.remat}, wire {cfg.data.wire_dtype}, "
+        f"estep method {cfg.estep.method} ({cfg.estep.fixed_bias_units} units) impl "
+        f"{cfg.estep.impl}; {card}")
+    batches = batch_iterator(data, cfg.data, batch_size=bs, seed=0)
+    windows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    k1.launches = k23.launches = k23.bwd_launches = 0
+    t0 = time.perf_counter()
+    records = trainer.fit(state, batches, num_steps=steps, log_fn=windows.append)
+    wall = time.perf_counter() - t0
+    launches = dict(estep=k1.launches, block1_fwd=k23.launches, block1_bwd=k23.bwd_launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    cached = to_device(next(batches), device)
+    batches.close()
+    losses = [r["loss"] for r in records]
+    if len(records) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: {len(records)} of {steps} steps, losses {losses}")
+    for name, key in (("estep", "estep_launches"), ("block1_fwd", "block1_fwd_launches"),
+                      ("block1_bwd", "block1_bwd_launches")):
+        want = per_step[name]
+        if launches[name] != want * steps or any(r[key] != want for r in records):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times in {steps} "
+                                 f"steps, expected {want} a step")
+    first = math.log(cfg.model.num_classes) + cfg.optim.weight_decay * l2
+    if abs(losses[0] - first) > 1e-3:
+        raise AssertionError(f"{tag}: first loss {losses[0]} != ln(C) + wd*l2 = {first}")
+    step_ms = statistics.median(w["window_seconds"] for w in windows[1:]) * 1e3
+    log(f"{tag}: {steps} steps, losses {[round(v, 6) for v in losses]}, first {losses[0]:.7f} "
+        f"vs ln(C) + wd*l2 {first:.7f}; launches {launches} (expected {per_step} a step)")
+    log(f"{tag}: median {step_ms:.2f} ms/step over steps 1..{steps - 1} (log window wall, "
+        f"synchronized, batch fetch included), fit wall {wall:.2f} s, peak memory {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
+    return dict(trainer=trainer, state=state, cached=cached, step_ms=step_ms, peak=peak,
+                losses=losses, launches=launches, wall_s=wall)
+
+
+def train_highres(device, card: str) -> dict:
+    """Phase "train highres": the 513x513 training path (a 65x65 score
+    map, so K1 runs over a cluster of CTAs an image) through ``fit``, then
+    the step alone on a cached batch (synchronized wall, peak memory) and
+    its device time by kernel under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    r = train_variant(device, card, "train highres", HIGHRES_OVERRIDES, HIGHRES_STEPS,
+                      dict(estep=1, block1_fwd=1, block1_bwd=1))
+    trainer, state, batch = r["trainer"], r["state"], r["cached"]
+    log(f"train highres: K1 takes {k1.ctas_per_image(21, 65 * 65)} CTAs (a cluster) an image "
+        f"at 65x65")
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(HIGHRES_CACHED):
+        t0 = time.perf_counter()
+        float(trainer.train_step(state, batch)["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(HIGHRES_PROFILED):
+            float(trainer.train_step(state, batch)["loss"])
+        prof_wall = (time.perf_counter() - t0) * 1e3 / HIGHRES_PROFILED
+    rows = device_rows(prof, HIGHRES_PROFILED)
+    busy = sum(ms for ms, _, _ in rows)
+    log(f"train highres: {HIGHRES_CACHED} steps on one cached batch: "
+        f"{[round(w, 2) for w in walls]} ms wall each (synchronized), median {statistics.median(walls):.2f} ms; peak memory "
+        f"{peak} B ({peak / 2**30:.2f} GiB); under the profiler {prof_wall:.2f} ms wall a step, "
+        f"device busy {busy:.2f} ms a step ({100 * busy / prof_wall:.1f}%)"
+        if rows else "train highres: the profiler recorded no device time")
+    for ms, count, key in rows[:8]:
+        log(f"train highres profile: {ms:9.3f} ms/step  {count:4d}/step  {key[:100]}")
+    k1_row = [ms for ms, _, key in rows if "estep_kernel" in key]
+    return dict(step_ms=statistics.median(walls), fit_step_ms=r["step_ms"], peak=peak,
+                device_ms=busy if rows else None, k1_ms=k1_row[0] if k1_row else None)
+
+
+def train_fixed(device, card: str) -> dict:
+    """Phase "train fixed": EM-Fixed (``estep.method=fixed``) at full width
+    at 321x321 in bf16: K1 launched 0 times, K2 and K3 once a step, finite
+    losses."""
+    r = train_variant(device, card, "train fixed", FIXED_OVERRIDES, FIXED_STEPS,
+                      dict(estep=0, block1_fwd=1, block1_bwd=1))
+    return dict(step_ms=r["step_ms"], peak=r["peak"])
+
+
+def estep_native_phase(device, card: str) -> dict:
+    """Phase "estep native": ``estep_labels(impl="native")`` (the host C++
+    library on a host copy of the scores, the labels copied back) against
+    K1's labels on ``realistic_batch`` at B=6, 41x41 and 65x65, pixel for
+    pixel, and its round trip (host clock around the synchronized call,
+    median of 20) beside K1's ``estep_labels`` (CUDA events)."""
+    import torch
+
+    from em_adapt_torch.config import EStepConfig
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.ops.estep import estep_labels
+
+    out = {}
+    for side in (41, 65):
+        scores, label, orders = realistic_batch(np.random.default_rng(7 * side), 6, hw=side)
+        nchw = torch.from_numpy(scores).to(device).permute(0, 3, 1, 2).contiguous()
+        s = nchw.permute(0, 2, 3, 1)  # the model's logits as the step passes them
+        lab, o = torch.from_numpy(label).to(device), torch.from_numpy(orders).to(device)
+        before = k1.launches
+        want = estep_labels(s, lab, o, EStepConfig())
+        got = estep_labels(s, lab, o, EStepConfig(impl="native"))
+        torch.cuda.synchronize()
+        if k1.launches != before + 1:
+            raise AssertionError(f"estep native {side}x{side}: K1 launched "
+                                 f"{k1.launches - before} times for one call")
+        if got.device != s.device or not torch.equal(got, want):
+            raise AssertionError(f"estep native {side}x{side}: labels on {got.device} differ "
+                                 f"from K1's at {int((got.cpu() != want.cpu()).sum())} pixels")
+        walls = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            estep_labels(s, lab, o, EStepConfig(impl="native"))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        k1_ms = cuda_ms(lambda: estep_labels(s, lab, o, EStepConfig()), reps=20, warmup=3)
+        out[side] = dict(ms=statistics.median(walls), k1_ms=k1_ms)
+        log(f"estep native B=6 {side}x{side}: labels pixel-identical to K1's "
+            f"({got.numel()} pixels); round trip (scores to the host, the library on "
+            f"{os.cpu_count()} cores, labels back) {out[side]['ms']:.3f} ms median of 20 "
+            f"(min {min(walls):.3f}); K1's estep_labels {k1_ms:.4f} ms (CUDA events); {card}")
+    return out
 
 
 #: The resume phase: run A trains RESUME_STEPS steps uninterrupted at
@@ -1922,10 +2114,12 @@ def check_block1_nan(device) -> list[str]:
 
 def check_block1_bwd_nan(device) -> dict:
     """K3 on x with NaN (:data:`K2_NAN_CASES`' first case) against its
-    plain version (cuDNN off): NaN counts per leaf. K3 recomputes y1 and
-    y2 with fmaxf, which maps NaN to 0, so its gradients may be finite
-    where the plain version's are NaN. Measured and logged, not a check:
-    the gap is recorded in ROADMAP.md Queue 3."""
+    plain version (cuDNN off): the NaN count of each leaf must equal the
+    plain version's. K3 recomputes y1 and y2 and takes the pool's maximum
+    with ``max.NaN.f32``, which passes a NaN on as ``jnp.maximum`` does; a
+    window whose maximum is NaN routes nothing, as the plain version's
+    first match does, and the NaN reaches dw2 through y1 in the dW2
+    product."""
     import torch
 
     from em_adapt_torch.ops import block1 as k23
@@ -1946,7 +2140,9 @@ def check_block1_bwd_nan(device) -> dict:
     same = all(k == p for k, p, _ in out.values())
     log(f"K3 {name}: NaN gradients (kernel, plain, of) per leaf "
         + ", ".join(f"{leaf} {v}" for leaf, v in out.items())
-        + f": {'the same' if same else 'they differ'} (measured, not checked)")
+        + f": {'the same' if same else 'they DIFFER'}")
+    if not same:
+        raise AssertionError(f"K3 {name}: NaN counts per leaf (kernel, plain, of) {out}")
     return dict(nan_counts=out, same=same)
 
 
@@ -2530,6 +2726,14 @@ def main(argv=None) -> int:
         f"image {in_step['present']}. On realistic_batch B=6: {t6['ms']:.4f} ms, profiler "
         f"{measured(t6['prof_ms'], 4, 'ms')}, fixed {measured(t6['fixed_ms'], 4, 'ms')}, "
         f"{measured(t6['visit_us'], 3, 'us')} a visit, present visits per image {t6['present']}")
+    highres = phase("train highres", train_highres, device, card)
+    phase("train fixed", train_fixed, device, card)
+    phase("estep native", estep_native_phase, device, card)
+    t65 = k1_result["timing"][(6, 65)]
+    log(f"K1 at 65x65 (the 513x513 input): {t65['ms']:.4f} ms per launch at B=6 on "
+        f"realistic_batch ({t65['ctas']} CTAs an image), "
+        f"{k1_result['timing'][(30, 65)]['ms']:.4f} at B=30; in one 513x513 bf16 step's "
+        f"profile {measured(highres['k1_ms'], 4, 'ms')} (SyntheticVOC's tags: all 21 classes)")
     phase("resume bf16", resume, device, card)
     phase("input bf16", input_phase, device, card)
     phase("input VOC", voc_tree_phase, device, card)

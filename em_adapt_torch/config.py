@@ -3,9 +3,10 @@
 A copy of the dataclasses of ``em_adapt_tpu/config.py`` with the fields
 the ported slices read, and the same defaults: ``ExperimentConfig()``
 is the reference recipe (f32, batch 6, accumulation 5, 321x321 input, 21
-classes). Fields of later slices are added with them. Values the port
-does not run yet in a mode (training or evaluation) are rejected by
-:func:`check_supported`, which names the ROADMAP.md item that brings them.
+classes). Fields of later slices are added with them. Values that a
+mode (training or evaluation) does not take are rejected by
+:func:`check_supported`; an option of a later slice raises where it is
+read and names the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -19,9 +20,18 @@ class EStepConfig:
     """E-step parameters (reference deeplab.py:181): bg_p=0.4, fg_p=0.2,
     num_iter=5, suppress_others=True, margin_others=1e-5.
 
-    ``impl``: "auto" or "pallas" run the E-step kernel (the hand-written
-    CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU
-    tensor); "jax" runs the sort reference. The names follow the JAX
+    ``method``: "adaptive" (EM-Adapt, the reference's rank-based bias) or
+    "fixed" (EM-Fixed, arXiv:1502.02734 §3.3: a constant bias added to
+    each present class's scores, ``fixed_bg_bias`` for the background and
+    ``fixed_fg_bias`` for a foreground class, in the units
+    ``fixed_bias_units`` names: "logit" (raw score units) or "spread"
+    (multiples of the image's present-class score STD)).
+
+    ``impl`` (method "adaptive"): "auto" or "pallas" run the E-step kernel
+    (the hand-written CUDA kernel on a CUDA tensor, its plain PyTorch
+    version on a CPU tensor); "jax" runs the sort reference; "native" the
+    host C++ library (``native/estep.cpp``) on a copy of the scores. Every
+    impl runs the same elementwise EM-Fixed. The names follow the JAX
     package so that one config file drives both.
     """
 
@@ -31,6 +41,9 @@ class EStepConfig:
     num_iter: int = 5
     suppress_others: bool = True
     margin_others: float = 1e-5
+    fixed_bg_bias: float = 3.0
+    fixed_fg_bias: float = 5.0
+    fixed_bias_units: str = "logit"
     impl: str = "auto"
 
 
@@ -220,17 +233,6 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
     if mode not in ("train", "eval"):
         raise ValueError(f"mode={mode!r}: expected 'train' or 'eval'")
     train = mode == "train"
-    unsupported = [
-        (train and cfg.estep.impl == "native", "estep.impl='native'",
-         "Queue 1 item 4 (the native E-step binding)"),
-        (train and cfg.estep.method == "fixed", "estep.method='fixed'",
-         "Queue 1 item 3 (EM-Fixed)"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md {item} brings it"
-            )
     if cfg.model.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"model.compute_dtype={cfg.model.compute_dtype!r}: expected 'float32' or 'bfloat16'"
@@ -243,11 +245,15 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         raise ValueError(f"eval.crf_impl must be 'host' or 'tpu', got {cfg.eval.crf_impl!r}")
     if not train:
         return
-    if cfg.estep.method != "adaptive":
-        raise ValueError(f"estep.method={cfg.estep.method!r}: expected 'adaptive'")
-    if cfg.estep.impl not in ("auto", "jax", "pallas"):
+    if cfg.estep.method not in ("adaptive", "fixed"):
+        raise ValueError(f"estep.method={cfg.estep.method!r}: expected 'adaptive' or 'fixed'")
+    if cfg.estep.impl not in ("auto", "jax", "pallas", "native"):
         raise ValueError(
-            f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax' or 'pallas'"
+            f"estep.impl={cfg.estep.impl!r}: expected 'auto', 'jax', 'pallas' or 'native'"
+        )
+    if cfg.estep.fixed_bias_units not in ("logit", "spread"):
+        raise ValueError(
+            f"estep.fixed_bias_units={cfg.estep.fixed_bias_units!r}: expected 'logit' or 'spread'"
         )
     if cfg.train.eval_protocol not in ("fixed", "voc"):
         raise ValueError(

@@ -212,6 +212,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* 
                : "memory");
 }
 
+// max(a, b) that propagates NaN, as jnp.maximum and the plain version's
+// ReLU do (fmaxf returns the other operand): K2's helper
+// (csrc/block1_fwd.cu). On numbers, +0 and -0 included, it is max.f32.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h2);
@@ -498,8 +507,8 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       uint32_t packed[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float lo = valid ? fmaxf(acc[2 * j] + b1s[cg * 8 + 2 * j], 0.f) : 0.f;
-        const float hi = valid ? fmaxf(acc[2 * j + 1] + b1s[cg * 8 + 2 * j + 1], 0.f) : 0.f;
+        const float lo = valid ? max_nan(acc[2 * j] + b1s[cg * 8 + 2 * j], 0.f) : 0.f;
+        const float hi = valid ? max_nan(acc[2 * j + 1] + b1s[cg * 8 + 2 * j + 1], 0.f) : 0.f;
         packed[j] = pack_bf16(lo, hi);
       }
       *reinterpret_cast<uint4*>(y1s + p * kRow + cg * 8) =
@@ -569,8 +578,8 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int n = (nhalf * 4 + j) * 8 + tig * 2;
-            const float lo = valid ? fmaxf(acc[t][j][2 * half] + b2s[n], 0.f) : 0.f;
-            const float hi = valid ? fmaxf(acc[t][j][2 * half + 1] + b2s[n + 1], 0.f) : 0.f;
+            const float lo = valid ? max_nan(acc[t][j][2 * half] + b2s[n], 0.f) : 0.f;
+            const float hi = valid ? max_nan(acc[t][j][2 * half + 1] + b2s[n + 1], 0.f) : 0.f;
             y2w[m * (kRow / 2) + n / 2] = pack_bf16(lo, hi);
           }
         }
@@ -623,11 +632,14 @@ block1_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       const int ch = i % kF, w = i / kF;
       const int wp = w / kWinW, wq = w % kWinW;
       float v[9];
-      float mx = 0.f;  // every y2 value is >= 0
+      // Every y2 value is >= 0 or NaN. A NaN maximum equals no value, so
+      // fm stays 9 and the window routes nothing, as the first match of
+      // pool_route_plain and of the TPU kernel does (== is false on NaN).
+      float mx = 0.f;
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
         v[k] = __bfloat162float(y2s[((2 * wp + k / 3) * kY2W + 2 * wq + k % 3) * kRow + ch]);
-        mx = fmaxf(mx, v[k]);
+        mx = max_nan(mx, v[k]);
       }
       int fm = 9;
 #pragma unroll

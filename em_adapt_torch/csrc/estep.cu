@@ -28,6 +28,31 @@
 // block-wide counts of the search. A visit of an absent class adds 0 and
 // is skipped without any barrier.
 //
+// Large score maps: one image over a thread block cluster of N CTAs. A
+// 65x65 map (the 513x513 input's) holds 21 * 4225 * 4 = 354,900 B, more
+// than one block's 227 KB, and 4225 pixels, more than 512 threads take at
+// four pixels each. The launcher takes the least N (at most 8, the
+// portable cluster size) for which ceil(HW / N) pixels fit a CTA: four a
+// thread and the block's shared memory (N = 1 up to 2048 pixels at 21
+// classes; N = 3 at 65x65, 1409 pixels and 121,212 B a CTA). CTA rank r
+// holds the 21 channels of pixels [r * chunk, r * chunk + chunk), so
+// each pixel's state stays in one CTA, and only four things cross CTAs,
+// all through distributed shared memory:
+//   - the tags: each CTA ORs its own pixels' labels, then every CTA ORs
+//     the N sets after the first cluster barrier;
+//   - a round's per-probe counts: after the block's count, warp 0 writes
+//     its 32 totals into slot [phase][rank] of every CTA, one cluster
+//     barrier, and each CTA sums the N slots (32-bit: a cluster counts up
+//     to 16,384 pixels). The phase alternates as the byte buffer's does,
+//     so one cluster barrier a round suffices: a CTA writes round t+2's
+//     slots only after every CTA has passed round t+1's barrier, by which
+//     time round t's slots have been read;
+//   - the two means of the final shift: each CTA's block sum into slot
+//     [rank] of every CTA, one cluster barrier, and a sum in rank order,
+//     so that every CTA gets the same bits;
+//   - nothing else: rank 0 writes the thresholds, each CTA its own pixels.
+// N = 1 is launched without a cluster and runs the kernel above unchanged.
+//
 // The search: the threshold `cand` is the least 31-bit pattern with at
 // least k+1 diff patterns at or below it. Its bits are fixed from the top
 // a digit of R = K1_DIGIT_BITS bits at a time (the first digit takes the
@@ -49,14 +74,16 @@
 // but not round t+2's before every thread has passed round t+1's barrier.
 //
 // What bounds it: the chain of (present visits) * ceil(31 / R) dependent
-// block rounds, i.e. barrier latency plus each round's own instructions.
-// Its byte bound (scores in, scores out) and operation bound are both
-// below a microsecond at B = 6; with only B of 132 SMs busy the kernel is
-// latency-bound.
+// block rounds, i.e. barrier latency plus each round's own instructions
+// (and in a cluster, a cluster barrier a round). Its byte bound (scores
+// in, scores out) and operation bound are both below a microsecond at
+// B = 6 (a few at 65x65); with only B (or B * N) of 132 SMs busy the
+// kernel is latency-bound.
 //
 // No fast-math: flush-to-zero would alter subnormal diffs and with them
 // the threshold bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -68,8 +95,13 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPixelsPerCta = 4 * kThreads;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr size_t kMaxSmemBytes = 232448;  // a block's opt-in shared memory on Hopper
 
 constexpr int kDigitBits = K1_DIGIT_BITS;  // R
 static_assert(kDigitBits >= 1 && kDigitBits <= 5, "a round's 2^R - 1 probes need <= 31 lanes");
@@ -79,12 +111,16 @@ constexpr int kWords = kDigitBits <= 2 ? 1 : 1 << (kDigitBits - 2);  // 4 one-by
 constexpr unsigned kOnes = 0x01010101u;
 
 // One round of the search: the digit at shift `s` (a round of `bits`
-// bits) of the least pattern with at least k1 of the block's patterns at
+// bits) of the least pattern with at least k1 of the image's patterns at
 // or below it, given the digits above (`cand`, zero at and below s).
-// `buf` holds kWarps * kWords words; callers alternate two buffers.
-template <int PPT>
+// `buf` holds kWarps * kWords words; callers alternate two buffers. In a
+// cluster (kCluster) the image's count is the sum of its `ncta` CTAs'
+// counts, exchanged through `slots` ([kMaxCluster][32] ints, alternated
+// with `buf`).
+template <int PPT, bool kCluster>
 __device__ __forceinline__ unsigned search_digit(const unsigned (&dbits)[PPT], unsigned cand,
-                                                 int s, int bits, int k1, unsigned* buf) {
+                                                 int s, int bits, int k1, unsigned* buf,
+                                                 int* slots, int ncta, int rank) {
   static_assert(PPT <= 4, "a thread's byte counts (0x20 each) must stay below 0x100");
   const int lane = threadIdx.x & 31;
   const unsigned c = cand >> s;
@@ -118,6 +154,16 @@ __device__ __forceinline__ unsigned search_digit(const unsigned (&dbits)[PPT], u
   int total = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) total += bytes[w * kWords * 4];
+  if constexpr (kCluster) {
+    // Warp 0 writes this CTA's totals into every CTA's slot row `rank`.
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x < 32) {
+      for (int r = 0; r < ncta; ++r) *cluster.map_shared_rank(slots + rank * 32 + lane, r) = total;
+    }
+    cluster.sync();
+    total = 0;
+    for (int r = 0; r < ncta; ++r) total += slots[r * 32 + lane];
+  }
   // Totals never fall as m grows: the digit is the count of probes below k1.
   const int probes = (1 << bits) - 1;
   return __popc(__ballot_sync(0xffffffffu, lane < probes && total < k1));
@@ -135,38 +181,97 @@ __device__ __forceinline__ float block_sum(float v, float* buf) {
   return s;
 }
 
-template <int PPT>  // pixels per thread: HW <= PPT * kThreads
+// The sum of one float over the cluster's CTAs (`v`, the same in every
+// thread of a CTA), in rank order, so that every CTA gets the same bits.
+// `slots` holds kMaxCluster floats.
+__device__ __forceinline__ float cluster_sum(float v, float* slots, int ncta, int rank) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < ncta; ++r) *cluster.map_shared_rank(slots + rank, r) = v;
+  }
+  cluster.sync();
+  float s = slots[0];
+  for (int r = 1; r < ncta; ++r) s += slots[r];
+  return s;
+}
+
+// Dynamic shared memory of one CTA holding `chunk` pixels of C channels,
+// in a cluster of `ncta` CTAs.
+size_t smem_bytes(int C, int chunk, int ncta) {
+  size_t bytes = sizeof(float) * static_cast<size_t>(C) * chunk + sizeof(int) * C +
+                 sizeof(unsigned) * 2 * kWarps * kWords + sizeof(float) * kWarps;
+  if (ncta > 1)  // own tags, the count slots, the mean slots
+    bytes += sizeof(int) * C + sizeof(int) * 2 * kMaxCluster * 32 + sizeof(float) * 2 * kMaxCluster;
+  return bytes;
+}
+
+// The least cluster size whose CTAs each hold ceil(HW / N) pixels; 0 if
+// none of at most kMaxCluster CTAs does.
+int cluster_size(int C, int HW) {
+  for (int n = 1; n <= kMaxCluster; ++n) {
+    const int chunk = (HW + n - 1) / n;
+    if (chunk <= kMaxPixelsPerCta && smem_bytes(C, chunk, n) <= kMaxSmemBytes) return n;
+  }
+  return 0;
+}
+
+// PPT: pixels per thread, chunk <= PPT * kThreads. kCluster: the image is
+// spread over a cluster of CTAs, each holding `chunk` of its pixels
+// (without, chunk == HW and the grid is one CTA per image).
+template <int PPT, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
 estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
              const int* __restrict__ visit, const float* __restrict__ gmax_ptr,
              float* __restrict__ out, float* __restrict__ thresholds, int C, int HW,
-             int L, int k_bg, int k_fg, int suppress, float margin) {
+             int L, int k_bg, int k_fg, int suppress, float margin, int chunk) {
+  int ncta = 1, rank = 0;
+  if constexpr (kCluster) {
+    ncta = static_cast<int>(cg::this_cluster().num_blocks());
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+  } else {
+    chunk = HW;
+  }
   extern __shared__ float smem[];
-  float* f = smem;                                     // [C * HW]
-  int* tags = reinterpret_cast<int*>(f + C * HW);      // [C]
+  float* f = smem;                                     // [C * chunk]
+  int* tags = reinterpret_cast<int*>(f + C * chunk);   // [C]
   unsigned* counts = reinterpret_cast<unsigned*>(tags + C);       // [2][kWarps][kWords]
   float* sums = reinterpret_cast<float*>(counts + 2 * kWarps * kWords);  // [kWarps]
+  int* own_tags = reinterpret_cast<int*>(sums + kWarps);          // [C], cluster only
+  int* slots = own_tags + C;                                      // [2][kMaxCluster][32]
+  float* mean_slots = reinterpret_cast<float*>(slots + 2 * kMaxCluster * 32);  // [2][kMaxCluster]
 
   const int tid = threadIdx.x;
-  const size_t img = blockIdx.x;
-  const float* src = scores + img * C * HW;
-  const int* lab = labels + img * HW;
+  const size_t img = blockIdx.x / ncta;
+  const int base = rank * chunk;          // this CTA's first pixel
+  const int n = min(chunk, HW - base);    // and how many it holds
+  const float* src = scores + img * C * HW + base;
+  const int* lab = labels + img * HW + base;
+  int* my_tags = kCluster ? own_tags : tags;
 
-  for (int c = tid; c < C; c += kThreads) tags[c] = 0;
+  for (int c = tid; c < C; c += kThreads) my_tags[c] = 0;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     const int p = tid + i * kThreads;
-    if (p < HW) {
+    if (p < n) {
       const int l = lab[p];
-      if (l >= 0 && l < C) atomicOr(&tags[l], 1);
+      if (l >= 0 && l < C) atomicOr(&my_tags[l], 1);
     }
   }
   for (int c = 0; c < C; ++c) {
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = tid + i * kThreads;
-      if (p < HW) f[c * HW + p] = src[c * HW + p];
+      if (p < n) f[c * chunk + p] = src[c * HW + p];
+    }
+  }
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every CTA's own tags complete
+    for (int c = tid; c < C; c += kThreads) {
+      int t = 0;
+      for (int r = 0; r < ncta; ++r) t |= *cluster.map_shared_rank(own_tags + c, r);
+      tags[c] = t;
     }
   }
   __syncthreads();  // tags complete
@@ -178,36 +283,38 @@ estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
   for (int i = 0; i < PPT; ++i) {
     const int p = tid + i * kThreads;
     rowmax[i] = 0.f;
-    if (p >= HW) continue;
+    if (p >= n) continue;
     if (suppress) {
       float pmin = f[p] + (tags[0] ? 0.f : gmax);
-      for (int c = 1; c < C; ++c) pmin = fminf(pmin, f[c * HW + p] + (tags[c] ? 0.f : gmax));
+      for (int c = 1; c < C; ++c) pmin = fminf(pmin, f[c * chunk + p] + (tags[c] ? 0.f : gmax));
       for (int c = 0; c < C; ++c) {
-        if (!tags[c] && f[c * HW + p] > pmin) f[c * HW + p] = pmin - margin;
+        if (!tags[c] && f[c * chunk + p] > pmin) f[c * chunk + p] = pmin - margin;
       }
     }
     float m = f[p];
-    for (int c = 1; c < C; ++c) m = fmaxf(m, f[c * HW + p]);
+    for (int c = 1; c < C; ++c) m = fmaxf(m, f[c * chunk + p]);
     rowmax[i] = m;
     part += m;
   }
   const float inv_hw = 1.0f / static_cast<float>(HW);
-  const float before = block_sum(part, sums) * inv_hw;
+  float before = block_sum(part, sums);
+  if constexpr (kCluster) before = cluster_sum(before, mean_slots, ncta, rank);
+  before *= inv_hw;
 
   int phase = 0;
   for (int t = 0; t < L; ++t) {
     const int j = visit[t];
     if (!tags[j]) {
-      if (tid == 0) thresholds[img * L + t] = 0.f;
+      if (tid == 0 && rank == 0) thresholds[img * L + t] = 0.f;
       continue;
     }
-    float* fj = f + j * HW;
+    float* fj = f + j * chunk;
     unsigned dbits[PPT];
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = tid + i * kThreads;
-      // Pixels past HW get a pattern above every probe (probes < 2^31).
-      dbits[i] = p < HW ? __float_as_uint(rowmax[i] - fj[p]) : 0xffffffffu;
+      // Pixels past the CTA's get a pattern above every probe (probes < 2^31).
+      dbits[i] = p < n ? __float_as_uint(rowmax[i] - fj[p]) : 0xffffffffu;
     }
     const int k1 = (j == 0 ? k_bg : k_fg) + 1;
     unsigned cand = 0;
@@ -215,15 +322,18 @@ estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
     for (int r = 0; r < kRounds; ++r) {
       const int bits = r == 0 ? kTopBits : kDigitBits;
       const int s = 31 - kTopBits - r * kDigitBits;
-      cand |= search_digit<PPT>(dbits, cand, s, bits, k1, counts + phase * kWarps * kWords) << s;
+      cand |= search_digit<PPT, kCluster>(dbits, cand, s, bits, k1,
+                                          counts + phase * kWarps * kWords,
+                                          slots + phase * kMaxCluster * 32, ncta, rank)
+              << s;
       phase ^= 1;
     }
     const float th = __uint_as_float(cand);
-    if (tid == 0) thresholds[img * L + t] = th;
+    if (tid == 0 && rank == 0) thresholds[img * L + t] = th;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = tid + i * kThreads;
-      if (p < HW) {
+      if (p < n) {
         const float v = fj[p] + th;
         fj[p] = v;
         rowmax[i] = fmaxf(rowmax[i], v);
@@ -234,23 +344,27 @@ estep_kernel(const float* __restrict__ scores, const int* __restrict__ labels,
   part = 0.f;
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    if (tid + i * kThreads < HW) part += rowmax[i];
+    if (tid + i * kThreads < n) part += rowmax[i];
   }
-  const float after = block_sum(part, sums) * inv_hw;
+  float after = block_sum(part, sums);
+  if constexpr (kCluster) after = cluster_sum(after, mean_slots + kMaxCluster, ncta, rank);
+  after *= inv_hw;
   const float shift = before - after;
-  float* dst = out + img * C * HW;
+  float* dst = out + img * C * HW + base;
   for (int c = 0; c < C; ++c) {
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = tid + i * kThreads;
-      if (p < HW) dst[c * HW + p] = f[c * HW + p] + shift;
+      if (p < n) dst[c * HW + p] = f[c * chunk + p] + shift;
     }
   }
+  // No CTA touches another's shared memory after the last cluster barrier,
+  // so a CTA may exit while the others still write their pixels.
 }
 
-// Lets estep_kernel<PPT> take the device's whole opt-in shared memory.
-// Set once per device (the attribute persists), not on every launch.
-template <int PPT>
+// Lets estep_kernel<PPT, kCluster> take the device's whole opt-in shared
+// memory. Set once per device (the attribute persists), not on every launch.
+template <int PPT, bool kCluster>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -261,57 +375,87 @@ cudaError_t allow_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(estep_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+  err = cudaFuncSetAttribute(estep_kernel<PPT, kCluster>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
+// One CTA per image (ncta == 1), or one cluster of ncta CTAs per image,
+// each holding `chunk` pixels.
 template <int PPT>
 cudaError_t launch(const float* scores, const int* labels, const int* visit,
                    const float* gmax, float* out, float* thresholds, int B, int C,
                    int HW, int L, int k_bg, int k_fg, int suppress, float margin,
-                   size_t smem, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<PPT>();
+                   int ncta, int chunk, size_t smem, cudaStream_t stream) {
+  if (ncta == 1) {
+    const cudaError_t err = allow_smem<PPT, false>();
+    if (err != cudaSuccess) return err;
+    estep_kernel<PPT, false><<<B, kThreads, smem, stream>>>(scores, labels, visit, gmax, out,
+                                                            thresholds, C, HW, L, k_bg, k_fg,
+                                                            suppress, margin, chunk);
+    return cudaGetLastError();
+  }
+  const cudaError_t err = allow_smem<PPT, true>();
   if (err != cudaSuccess) return err;
-  estep_kernel<PPT><<<B, kThreads, smem, stream>>>(scores, labels, visit, gmax, out,
-                                                   thresholds, C, HW, L, k_bg, k_fg,
-                                                   suppress, margin);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * ncta);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&config, estep_kernel<PPT, true>, scores, labels, visit, gmax, out,
+                         thresholds, C, HW, L, k_bg, k_fg, suppress, margin, chunk);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one image needs, in bytes.
+// Dynamic shared memory of one CTA, in bytes, at the cluster size the
+// launcher takes for C x HW (at kMaxCluster CTAs where none fits).
 size_t em_estep_smem_bytes(int C, int HW) {
-  return sizeof(float) * static_cast<size_t>(C) * HW + sizeof(int) * C +
-         sizeof(unsigned) * 2 * kWarps * kWords + sizeof(float) * kWarps;
+  const int n = cluster_size(C, HW);
+  const int ncta = n ? n : kMaxCluster;
+  return smem_bytes(C, (HW + ncta - 1) / ncta, ncta);
 }
 
 // R, the bits of the threshold each block round fixes (K1_DIGIT_BITS).
 int em_estep_digit_bits() { return kDigitBits; }
 
-int em_estep_max_pixels() { return 4 * kThreads; }
+// The most pixels an image may have: kMaxCluster CTAs at four a thread.
+int em_estep_max_pixels() { return kMaxCluster * kMaxPixelsPerCta; }
+
+// CTAs per image for C x HW (1: one CTA, no cluster); 0 if the image does
+// not fit a cluster of kMaxCluster.
+int em_estep_cluster_size(int C, int HW) { return cluster_size(C, HW); }
 
 // Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
 int em_estep_launch(const float* scores, const int* labels, const int* visit,
                     const float* gmax, float* out, float* thresholds, int B, int C, int HW,
                     int L, int k_bg, int k_fg, int suppress, float margin, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = em_estep_smem_bytes(C, HW);
+  const int ncta = cluster_size(C, HW);
+  if (ncta == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunk = (HW + ncta - 1) / ncta;
+  const size_t smem = smem_bytes(C, chunk, ncta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (HW <= kThreads)
+  if (chunk <= kThreads)
     return launch<1>(scores, labels, visit, gmax, out, thresholds, B, C, HW, L, k_bg, k_fg,
-                     suppress, margin, smem, s);
-  if (HW <= 2 * kThreads)
+                     suppress, margin, ncta, chunk, smem, s);
+  if (chunk <= 2 * kThreads)
     return launch<2>(scores, labels, visit, gmax, out, thresholds, B, C, HW, L, k_bg, k_fg,
-                     suppress, margin, smem, s);
-  if (HW <= 4 * kThreads)
-    return launch<4>(scores, labels, visit, gmax, out, thresholds, B, C, HW, L, k_bg, k_fg,
-                     suppress, margin, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                     suppress, margin, ncta, chunk, smem, s);
+  return launch<4>(scores, labels, visit, gmax, out, thresholds, B, C, HW, L, k_bg, k_fg,
+                   suppress, margin, ncta, chunk, smem, s);
 }
 
 const char* em_cuda_error_string(int err) {

@@ -6,12 +6,18 @@ estep.py:33-84): the channel-argmax label maps are pixel-identical, and
 the biased scores agree to float tolerance (the only difference is the
 summation order of the per-image means of the final shift).
 
-Two implementations:
+Three implementations of EM-Adapt:
 * :func:`estep` — the sort reference (``impl="jax"``): each visit sorts
   ``rowmax - f_j`` and reads the k-th value;
 * :func:`estep_bisect` — the kernel K1 (``impl="auto"``/``"pallas"``):
   the hand-written CUDA kernel on a CUDA tensor, its plain PyTorch version
-  on a CPU tensor (:mod:`em_adapt_torch.ops.estep_kernel`).
+  on a CPU tensor (:mod:`em_adapt_torch.ops.estep_kernel`);
+* ``impl="native"`` — the host C++ library
+  (:mod:`em_adapt_torch.ops.estep_native`) on a host copy of the scores.
+
+And EM-Fixed (:func:`estep_fixed`, ``method="fixed"``): a constant bias
+per present class, one elementwise add in plain PyTorch whatever the
+``impl`` (no kernel: the JAX package runs it as plain XLA too).
 
 Class orders are explicit ``[num_iter, C-1]`` arrays. In training they are
 drawn from a ``torch.Generator``, which gives other orders than JAX's keys
@@ -24,6 +30,7 @@ import torch
 
 from em_adapt_torch.config import EStepConfig
 from em_adapt_torch.ops.estep_kernel import estep_kernel
+from em_adapt_torch.ops.estep_native import estep_native
 
 
 def derive_tags(label: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -108,6 +115,43 @@ def estep(
     return f + (before - after)[:, None, None, None]
 
 
+def estep_fixed(
+    scores: torch.Tensor,
+    label: torch.Tensor,
+    *,
+    bg_bias: float = 3.0,
+    fg_bias: float = 5.0,
+    suppress_others: bool = True,
+    margin_others: float = 1e-5,
+    bias_units: str = "logit",
+) -> torch.Tensor:
+    """EM-Fixed (arXiv:1502.02734 §3.3; ``em_adapt_tpu/ops/estep.py::
+    estep_fixed``): ``bg_bias`` added to the background's scores and
+    ``fg_bias`` to each present foreground class's, nothing to an absent
+    class (clamped below the present-class min first, as in EM-Adapt,
+    with ``suppress_others``). ``bias_units="spread"`` multiplies the
+    biases by the image's STD of its present-class scores (moments masked
+    to the present channels). scores [B,H,W,C], label [B,H,W]; returns
+    the biased [B,H,W,C] f32 map."""
+    if bias_units not in ("logit", "spread"):
+        raise ValueError(f"bias_units={bias_units!r}: expected 'logit' or 'spread'")
+    f = scores.to(torch.float32)
+    b, h, w, c = f.shape
+    tags = derive_tags(label, c)
+    if suppress_others:
+        f = suppress_absent(f, tags, margin_others)
+    per_class = torch.full((c,), fg_bias, dtype=torch.float32, device=f.device)
+    per_class[0] = bg_bias
+    bias = (tags * per_class)[:, None, None, :]
+    if bias_units == "spread":
+        mask = tags[:, None, None, :]
+        n = (tags.sum(1) * (h * w)).clamp(min=1.0)
+        mean = (f * mask).sum((1, 2, 3)) / n
+        var = (mask * (f - mean[:, None, None, None]) ** 2).sum((1, 2, 3)) / n
+        bias = bias * var.sqrt()[:, None, None, None]
+    return f + bias
+
+
 def _estep_bisect_nchw(
     scores: torch.Tensor,
     label: torch.Tensor,
@@ -172,23 +216,27 @@ def estep_labels(
 
     scores [B,H,W,C]; a view of NCHW logits (the model's output) reaches
     the kernel without a copy. No gradient flows: the E-step output is a
-    fixed target (reference deeplab.py:120-123).
+    fixed target (reference deeplab.py:120-123). ``cfg.method="fixed"``
+    runs :func:`estep_fixed` for every ``cfg.impl`` (``orders`` unused);
+    ``cfg.impl="native"`` copies the scores to the host, runs the C++
+    library there and copies the labels back to the scores' device.
     """
-    if cfg.method != "adaptive":
-        raise NotImplementedError(
-            f"estep.method={cfg.method!r} is not ported yet: ROADMAP.md "
-            "Queue 1 item 3 (EM-Fixed) brings it"
-        )
-    if cfg.impl == "native":
-        raise NotImplementedError(
-            "estep.impl='native' is not ported yet: ROADMAP.md Queue 1 item 4 "
-            "(the native E-step binding) brings it"
-        )
-    if cfg.impl not in ("auto", "pallas", "jax"):
-        raise ValueError(f"estep.impl={cfg.impl!r}: expected 'auto', 'pallas' or 'jax'")
-    kw = dict(bg_p=cfg.bg_p, fg_p=cfg.fg_p, num_iter=cfg.num_iter,
-              suppress_others=cfg.suppress_others, margin_others=cfg.margin_others)
+    if cfg.method not in ("adaptive", "fixed"):
+        raise ValueError(f"estep.method={cfg.method!r}: expected 'adaptive' or 'fixed'")
+    if cfg.impl not in ("auto", "pallas", "jax", "native"):
+        raise ValueError(
+            f"estep.impl={cfg.impl!r}: expected 'auto', 'pallas', 'jax' or 'native'")
+    kw = dict(suppress_others=cfg.suppress_others, margin_others=cfg.margin_others)
     with torch.no_grad():
+        if cfg.method == "fixed":
+            return estep_fixed(scores, label, bg_bias=cfg.fixed_bg_bias,
+                               fg_bias=cfg.fixed_fg_bias, bias_units=cfg.fixed_bias_units,
+                               **kw).argmax(3)
+        kw.update(bg_p=cfg.bg_p, fg_p=cfg.fg_p, num_iter=cfg.num_iter)
+        if cfg.impl == "native":
+            biased = estep_native(scores.float().cpu().numpy(), label.cpu().numpy(),
+                                  orders.cpu().numpy(), **kw)
+            return torch.from_numpy(biased.argmax(3)).to(scores.device)
         if cfg.impl == "jax":
             return estep(scores, label, orders, **kw).argmax(3)
         biased, _ = _estep_bisect_nchw(scores.permute(0, 3, 1, 2), label, orders, **kw)

@@ -9,6 +9,11 @@ float bits in plain PyTorch: each round fixes a digit of
 :data:`DIGIT_BITS` bits of every visit's threshold, as the kernel's
 block rounds do. There is no fallback from one to the other.
 
+An image of up to 2048 pixels (41x41 at a 321x321 input) runs in one
+CTA; a larger one (65x65 at 513x513) over a thread block cluster of up
+to :data:`MAX_CLUSTER` CTAs, each holding a share of its pixels
+(:func:`ctas_per_image`). Beyond that the wrapper raises.
+
 Inputs computed outside the kernel, as the JAX side computes them
 (estep_pallas.py:218-239): ``k_bg``/``k_fg`` = ``int(hw * p)``, the visit
 schedule as an int32 array, and ``gmax``, the max of the whole batch's
@@ -27,6 +32,9 @@ launches = 0
 
 #: Dynamic shared memory a block may use on Hopper (227 KB opt-in).
 MAX_SMEM_BYTES = 232448
+
+#: The most CTAs one image may span (the portable cluster size).
+MAX_CLUSTER = 8
 
 #: Bits of a threshold that one block round of the kernel fixes: its
 #: ``K1_DIGIT_BITS``, checked against the library when it is loaded. A
@@ -57,8 +65,18 @@ def _lib() -> ctypes.CDLL:
         if lib.em_estep_digit_bits() != DIGIT_BITS:
             raise RuntimeError(f"csrc/estep.cu fixes {lib.em_estep_digit_bits()} threshold bits "
                                f"a round, ops/estep_kernel.py {DIGIT_BITS}")
+        lib.em_estep_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.em_estep_cluster_size.restype = ctypes.c_int
         lib._em_typed = True
     return lib
+
+
+def ctas_per_image(c: int, hw: int) -> int:
+    """CTAs the kernel gives one image of ``c`` channels and ``hw`` pixels:
+    1 (no cluster) up to 2048 pixels at 21 classes, the least cluster
+    whose CTAs each hold a share beyond that, 0 where none of
+    :data:`MAX_CLUSTER` does. Builds the kernel's library."""
+    return _lib().em_estep_cluster_size(c, hw)
 
 
 def search_rounds(digit_bits: int) -> int:
@@ -172,13 +190,11 @@ def estep_kernel(
     if not (0 <= k_bg < hw and 0 <= k_fg < hw):
         raise ValueError(f"estep_kernel: ranks k_bg={k_bg}, k_fg={k_fg} outside [0, {hw})")
     lib = _lib()
-    smem, max_pixels = lib.em_estep_smem_bytes(c, hw), lib.em_estep_max_pixels()
-    if hw > max_pixels or smem > MAX_SMEM_BYTES:
+    if lib.em_estep_cluster_size(c, hw) == 0:
         raise ValueError(
-            f"estep_kernel: one image's state ({c} x {hw} f32, {smem} B) does "
-            f"not fit one block ({MAX_SMEM_BYTES} B of shared memory, "
-            f"{max_pixels} pixels); a multi-CTA E-step for large score maps "
-            "is ROADMAP.md Queue 1 item 5"
+            f"estep_kernel: one image's state ({c} x {hw} f32) does not fit a "
+            f"cluster of {MAX_CLUSTER} CTAs ({lib.em_estep_max_pixels()} pixels at four a "
+            f"thread, {MAX_SMEM_BYTES} B of shared memory a CTA)"
         )
     out, thresholds = launch(lib, scores, labels, visit, gmax, k_bg=k_bg, k_fg=k_fg,
                              suppress=suppress, margin=margin)

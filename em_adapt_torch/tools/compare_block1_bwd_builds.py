@@ -1,7 +1,7 @@
 """K3 against another version of its own source, element by element, on the card.
 
     git show <commit>:em_adapt_torch/csrc/block1_bwd.cu > build/block1_bwd_other.cu
-    python -m em_adapt_torch.tools.compare_block1_bwd_builds build/block1_bwd_other.cu
+    python -m em_adapt_torch.tools.compare_block1_bwd_builds [--time] build/block1_bwd_other.cu
 
 Run from the repository root. The other source (any version of
 ``csrc/block1_bwd.cu`` with the same C interface) is compiled with K3's own
@@ -11,7 +11,10 @@ the tool prints per case and leaf how many of the f32 elements differ in
 their bits, the largest difference, and how many of the other build's
 values are subnormal (a sum that ``red.global.add.f32``, which flushes
 subnormals, would change). The last line is the total of differing
-elements. Without a CUDA card it raises.
+elements. With ``--time`` both builds then run in turns at B=6, 321x321
+(7 rounds of 100 back-to-back launches between CUDA events each), and
+the tool prints one JSON line per build with the median, least and
+largest. Without a CUDA card it raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -86,6 +91,8 @@ def run_other(lib: ctypes.CDLL, x, dy, w1, b1, w2, b2):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("source", type=Path, help="the other version of csrc/block1_bwd.cu")
+    parser.add_argument("--time", action="store_true",
+                        help="time the other build beside K3 at B=6, 321x321")
     args = parser.parse_args(argv)
 
     from em_adapt_torch.device import resolve_device
@@ -113,6 +120,20 @@ def main(argv=None) -> int:
                          f"{float((n - o).abs().max()):.3e}; {subnormal} subnormal in the other)")
         print(f"{name}: " + "; ".join(texts), flush=True)
     print(f"differing elements in all: {total}")
+    if args.time:
+        from em_adapt_torch.utils.timing import cuda_ms_per_launch
+
+        case = chip_smoke.bwd_case(np.random.default_rng(6), 6, 321, "he", device)
+        runs = {"production": lambda: k23.block1_bwd(*case),
+                str(args.source): lambda: run_other(lib, *case)}
+        times = {spec: [] for spec in runs}
+        for _ in range(7):
+            for spec, run in runs.items():
+                times[spec].append(cuda_ms_per_launch(run, launches=100, reps=1, warmup=3))
+        for spec, t in times.items():
+            print(json.dumps({"build": spec, "batch": 6, "size": 321, "ms": statistics.median(t),
+                              "min": min(t), "max": max(t)}), flush=True)
+        print(chip_smoke.card_info(), flush=True)
     return 0
 
 

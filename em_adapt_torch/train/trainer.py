@@ -28,6 +28,7 @@ import json
 import math
 import os
 import time
+import warnings
 from typing import Callable, Iterable
 
 import numpy as np
@@ -46,6 +47,42 @@ from em_adapt_torch.train.checkpoint import CheckpointManager
 from em_adapt_torch.train.optim import AccumulatingSGD, lr_at
 from em_adapt_torch.train.state import TrainState
 from em_adapt_torch.utils.failure import GracefulShutdown, LossWatchdog
+
+
+def config_hints(cfg: ExperimentConfig) -> list[str]:
+    """The measured-knowledge hints that ``Trainer`` emits as
+    ``UserWarning``s at construction: the EM-Fixed ones of
+    ``em_adapt_tpu/train/trainer.py::config_hints``, word for word. Its
+    spatial-mesh hint (inputs of 513² and more on a multi-device mesh
+    without spatial sharding) comes with multi-GPU training, ROADMAP.md
+    Queue 1 item 11: the port runs on one card."""
+    hints = []
+    if cfg.estep.method == "fixed" and cfg.estep.fixed_bias_units == "logit":
+        hints.append(
+            "estep.method='fixed' with logit-unit biases: every "
+            "end-to-end run of this variant on the rehearsal task "
+            "degraded the model (cold start: trivial at every bias; "
+            "warm start from a 0.32 prior: erodes to all-foreground — "
+            "CONVERGENCE_FIXED.json). The constant bias loses "
+            "calibration as the logit spread grows; "
+            "estep.fixed_bias_units='spread' with SYMMETRIC biases "
+            "retained the prior (warm_spread arms), and "
+            "estep.method='adaptive' is the reference algorithm"
+        )
+    if (cfg.estep.method == "fixed"
+            and cfg.estep.fixed_bias_units == "spread"
+            and cfg.estep.fixed_bg_bias != cfg.estep.fixed_fg_bias):
+        hints.append(
+            "estep.method='fixed' with ASYMMETRIC spread-unit biases "
+            f"(bg {cfg.estep.fixed_bg_bias} != fg "
+            f"{cfg.estep.fixed_fg_bias}): both asymmetric arms of the "
+            "warm-start probe eroded the prior — the larger-biased side "
+            "floods the other's pixels with nothing to stop it "
+            "(CONVERGENCE_FIXED.json warm_spread_sweep; symmetric "
+            "biases retained 0.3055 of a 0.3202 prior). Prefer equal "
+            "bg/fg biases in spread units"
+        )
+    return hints
 
 
 def tag_classification_loss(
@@ -229,6 +266,8 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, *, device=None, steps_per_epoch: int | None = None):
         check_supported(cfg)
+        for hint in config_hints(cfg):
+            warnings.warn(hint, UserWarning, stacklevel=2)
         self.cfg = cfg
         self.device = resolve_device(device)
         set_precision(cfg.model.compute_dtype)

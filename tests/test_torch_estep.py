@@ -220,22 +220,29 @@ def test_make_class_orders():
 
 
 def test_estep_labels_dispatch():
-    """impl 'auto'/'pallas' (K1) and 'jax' (sort) give the same labels;
-    the CPU run of K1 is its plain version (no kernel launch); unported
-    options raise and name their ROADMAP item."""
+    """impl 'auto'/'pallas' (K1), 'jax' (sort) and 'native' (the host
+    library) give the oracle's labels; the CPU run of K1 is its plain
+    version (no kernel launch); method 'fixed' is EM-Fixed's argmax for
+    every impl; unknown values raise."""
+    from em_adapt_torch.ops.estep import estep_fixed
+
     g = np.random.default_rng(9)
     scores, label, orders = random_case(g, 3, 9, 9, 6, num_iter=5)
     s, lab, o = (torch.from_numpy(a) for a in (scores, label, orders))
     before = k1.launches
-    got = {impl: estep_labels(s, lab, o, EStepConfig(impl=impl)) for impl in ("auto", "pallas", "jax")}
+    impls = ("auto", "pallas", "jax", "native")
+    got = {impl: estep_labels(s, lab, o, EStepConfig(impl=impl)) for impl in impls}
     assert k1.launches == before
     want = estep_oracle(scores, label, orders=orders).argmax(3)
     for impl, weak in got.items():
         np.testing.assert_array_equal(weak.numpy(), want, err_msg=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estep_labels(s, lab, o, EStepConfig(impl="native"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estep_labels(s, lab, o, EStepConfig(method="fixed"))
+    fixed = estep_fixed(s, lab).argmax(3)
+    for impl in impls:
+        assert torch.equal(estep_labels(s, lab, o, EStepConfig(method="fixed", impl=impl)), fixed)
+    with pytest.raises(ValueError, match="estep.impl"):
+        estep_labels(s, lab, o, EStepConfig(impl="cuda"))
+    with pytest.raises(ValueError, match="estep.method"):
+        estep_labels(s, lab, o, EStepConfig(method="adapt"))
     with pytest.raises(ValueError, match="orders"):
         estep(s, lab, o[:2])
 

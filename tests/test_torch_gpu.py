@@ -94,15 +94,41 @@ def test_cuda_estep_labels_match_sort_reference(cuda_device):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_rejects_state_larger_than_shared_memory(cuda_device):
-    """65x65 score maps (513x513 input): the state does not fit one block;
-    the wrapper raises and names the ROADMAP item instead of falling back."""
+@pytest.mark.parametrize("b", [1, 6])
+def test_cuda_kernel_at_65_runs_over_a_cluster(cuda_device, b):
+    """65x65 score maps (513x513 input): one image's state does not fit
+    one block, so K1 spans a cluster of three CTAs an image, one launch;
+    thresholds bit-equal to the plain version and np.partition, argmax
+    identical, scores within 2e-5."""
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    assert k1.ctas_per_image(21, 65 * 65) == 3 and k1.ctas_per_image(21, 41 * 41) == 1
+    scores, label, orders = SMOKE.realistic_batch(np.random.default_rng(65 + b), b, hw=65)
+    args, kw = SMOKE.k1_inputs(scores, label, orders, cuda_device, **SMOKE.K1_RECIPE)
+    before = k1.launches
+    out, th = k1.estep_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    out_p, th_p = k1.estep_plain(*(a.cpu() for a in args), **kw)
+    assert torch.equal(th.cpu().view(torch.int32), th_p.view(torch.int32))
+    want = SMOKE.partition_thresholds(scores, label, orders, **SMOKE.K1_RECIPE)
+    np.testing.assert_array_equal(th.cpu().numpy().view(np.int32), want.view(np.int32))
+    assert torch.equal(out.argmax(1).cpu(), out_p.argmax(1))
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_state_larger_than_a_cluster(cuda_device):
+    """Beyond a cluster of 8 CTAs at four pixels a thread (16,384 pixels)
+    the wrapper raises; there is no fallback."""
+    from em_adapt_torch.ops import estep_kernel as k1
     from em_adapt_torch.ops.estep import estep_bisect, make_class_orders
 
-    s = torch.zeros(1, 65, 65, 21, device=cuda_device)
-    lab = torch.zeros(1, 65, 65, device=cuda_device)
+    assert k1.ctas_per_image(21, 16384) == 8 and k1.ctas_per_image(21, 16385) == 0
+    s = torch.zeros(1, 129, 129, 21, device=cuda_device)
+    lab = torch.zeros(1, 129, 129, device=cuda_device)
     o = make_class_orders(torch.Generator(cuda_device).manual_seed(0), 5, 21)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cluster of 8 CTAs"):
         estep_bisect(s, lab, o)
 
 
@@ -110,12 +136,13 @@ def test_cuda_kernel_rejects_state_larger_than_shared_memory(cuda_device):
 @pytest.mark.parametrize("case", SMOKE.K1_EDGE_CASES)
 def test_cuda_kernel_edge_cases_match_plain(cuda_device, case):
     """K1 on chip_smoke.py's edge cases at HW 49, 512, 600, 1024 and 1681
-    (one, two and four pixels a thread): thresholds bit-equal to the
-    plain version and to np.partition, argmax identical, scores within
-    2e-5 (the final shift's sums run in another order)."""
+    (one, two and four pixels a thread) and over clusters at 2049, 4096
+    and 4225: thresholds bit-equal to the plain version and to
+    np.partition, argmax identical, scores within 2e-5 (the final shift's
+    sums run in another order)."""
     from em_adapt_torch.ops import estep_kernel as k1
 
-    for h, w in SMOKE.K1_EDGE_SIZES:
+    for h, w in SMOKE.K1_EDGE_SIZES + SMOKE.K1_CLUSTER_SIZES:
         scores, label, orders, kw = SMOKE.k1_edge_case(case, h, w)
         args, kkw = SMOKE.k1_inputs(scores, label, orders, cuda_device, **kw)
         out, th = k1.estep_kernel(*args, **kkw)
@@ -130,11 +157,13 @@ def test_cuda_kernel_edge_cases_match_plain(cuda_device, case):
 
 @pytest.mark.gpu
 def test_cuda_kernel_is_reproducible(cuda_device):
-    """Two K1 runs on the same inputs give the same bits."""
+    """Two K1 runs on the same inputs give the same bits, in one CTA (41x41)
+    and over a cluster (65x65)."""
     from em_adapt_torch.ops import estep_kernel as k1
 
     inputs = [(*SMOKE.realistic_batch(np.random.default_rng(6), 6), SMOKE.K1_RECIPE),
-              SMOKE.k1_edge_case("ties", 41, 41)]
+              (*SMOKE.realistic_batch(np.random.default_rng(6), 6, hw=65), SMOKE.K1_RECIPE),
+              SMOKE.k1_edge_case("ties", 41, 41), SMOKE.k1_edge_case("ties", 65, 65)]
     for scores, label, orders, recipe in inputs:
         args, kw = SMOKE.k1_inputs(scores, label, orders, cuda_device, **recipe)
         first, again = k1.estep_kernel(*args, **kw), k1.estep_kernel(*args, **kw)
@@ -144,18 +173,21 @@ def test_cuda_kernel_is_reproducible(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_kernel_builds_without_spills(cuda_device):
-    """K1's three instances (1, 2 and 4 pixels a thread) spill no register
-    within 128 (512 threads a block), and the build fixes the plain
-    version's DIGIT_BITS a round: at most 8 rounds a present visit."""
+    """K1's six instances (1, 2 and 4 pixels a thread, in one CTA and over
+    a cluster) spill no register within 128 (512 threads a block), and the
+    build fixes the plain version's DIGIT_BITS a round: at most 8 rounds a
+    present visit."""
     from em_adapt_torch.ops import estep_kernel as k1
     from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
     from em_adapt_torch.utils import build
 
     build.build("estep")
     for ppt in (1, 2, 4):
-        report = ptxas_report(build.build_logs[("estep", ())], f"estep_kernelILi{ppt}E")
-        assert report["spill_stores"] == report["spill_loads"] == 0, ppt
-        assert report["registers"] <= 128, ppt
+        for cluster in (0, 1):
+            report = ptxas_report(build.build_logs[("estep", ())],
+                                  f"estep_kernelILi{ppt}ELb{cluster}E")
+            assert report["spill_stores"] == report["spill_loads"] == 0, (ppt, cluster)
+            assert report["registers"] <= 128, (ppt, cluster)
     assert k1._lib().em_estep_digit_bits() == k1.DIGIT_BITS
     assert k1.search_rounds(k1.DIGIT_BITS) <= 8
 
@@ -420,6 +452,42 @@ def test_bf16_train_step_launches_k2_and_k3_once(cuda_device):
     grads = [p.grad for p in state.model.parameters()]
     assert all(p is not None and bool(torch.isfinite(p).all()) for p in grads)
     assert float(state.model.layers["conv1_2"].weight.grad.abs().sum()) > 0
+
+
+@pytest.mark.gpu
+def test_bf16_step_at_513_launches_k1_k2_and_k3_once(cuda_device):
+    """One bf16 training step at a 513x513 input, full VGG width, a narrow
+    head, batch 1: K1 (over a cluster: the score map is 65x65), K2 and K3
+    each launch once; the loss and every gradient are finite."""
+    from em_adapt_torch.config import ExperimentConfig, apply_overrides
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.train.trainer import Trainer
+
+    cfg = apply_overrides(ExperimentConfig(), [
+        "model.compute_dtype=bfloat16", "model.input_size=(513,513)", "model.remat=true",
+        "model.fc6_channels=64", "data.wire_dtype=uint8", "train.batch_size=1"])
+    trainer = Trainer(cfg, device=cuda_device)
+    state = trainer.init_state()
+    g = np.random.default_rng(513)
+    label = np.zeros((1, 513, 513, 1), np.float32)
+    label[:, 100:400, 50:300] = 15
+    batch = {"image": g.integers(0, 256, size=(1, 513, 513, 3)).astype(np.uint8),
+             "label": label}
+    before = (k1.launches, k23.launches, k23.bwd_launches)
+    metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert (k1.launches, k23.launches, k23.bwd_launches) == tuple(n + 1 for n in before)
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(bool(torch.isfinite(p.grad).all()) for p in state.model.parameters())
+
+
+@pytest.mark.gpu
+def test_block1_bwd_kernel_passes_nan_through_as_plain(cuda_device):
+    """K3 on x with NaN (chip_smoke.K2_NAN_CASES' first case): the NaN
+    count of each gradient leaf equals the plain version's (cuDNN off)."""
+    rc = SMOKE.check_block1_bwd_nan(cuda_device)
+    assert rc["same"] and rc["nan_counts"]["dw2"][0] > 0
 
 
 #: The settings under which chip_smoke.py's "resume bf16" phase found two

@@ -251,9 +251,12 @@ def test_config_defaults_match_jax_and_unported_values_raise():
                                                          "estep.suppress_others=false"])
     assert cfg.data.input_size == (65, 65) and cfg.estep.suppress_others is False
     pcfg.check_supported(pcfg.ExperimentConfig())
-    for override in ("estep.impl=native", "estep.method=fixed"):
+    # EM-Fixed in both units and the native E-step train; a typo raises.
+    for override in ("estep.impl=native", "estep.method=fixed", "estep.fixed_bias_units=spread"):
+        pcfg.check_supported(pcfg.apply_overrides(pcfg.ExperimentConfig(), [override]))
+    for override in ("estep.impl=cuda", "estep.method=adapt", "estep.fixed_bias_units=std"):
         bad = pcfg.apply_overrides(pcfg.ExperimentConfig(), [override])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=override.split("=")[0]):
             pcfg.check_supported(bad)
     # bf16, the fused block1 (K2 and K3) and remat run in training and evaluation.
     for override in ("model.compute_dtype=bfloat16", "model.block1_impl=pallas",
