@@ -23,7 +23,9 @@ against the host grid CRF (phase "eval VOC"); the
 loop at three log cadences on cached batches (wall, busy share, host
 syncs outside the cadences); the training variants through the command
 line (tag warm-up, semi-supervision, LR groups, periodic eval with
-"best", a warm start) and He init in f32 and bf16; and
+"best", a warm start) and He init in f32 and bf16; the EM learning check
+("learn": the rehearsal tool's strong arm to its contract, and a short
+run-through of its weak arm with the refine, K1 once an EM step); and
 the bf16 fixed-resolution evaluation at 321x321, eval batch 6, through
 ``Evaluator.evaluate_fixed`` (K2), then checks what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
@@ -46,7 +48,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -89,14 +90,6 @@ K2_CASES = (("B=6 321x321", 6, 321, False), ("B=1 33x33", 1, 33, False),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_info() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
 
 
 def profiled_kernel_ms(fn, kernel: str, launches: int) -> float | None:
@@ -251,7 +244,8 @@ def k1_cases():
     """(name, NHWC scores, labels, orders, E-step keywords, golden output
     or None) of every case K1 is held on: ``realistic_batch`` at B=6 and
     B=30, one present class, the five goldens, the edge cases (in one CTA
-    and over clusters) and ``realistic_batch`` at B=6 and 65x65."""
+    and over clusters), ``realistic_batch`` at B=6 and 65x65, and at the
+    learning check's shape (B=8, 4 classes, 17x17)."""
     rng = np.random.default_rng(1234)
     cases = [(f"random_b{b}", *realistic_batch(rng, b), dict(K1_RECIPE), None) for b in (6, 30)]
     single = rng.normal(size=(1, 8, 8, 3)).astype(np.float32)
@@ -272,6 +266,9 @@ def k1_cases():
             cases.append((f"edge {name} {h}x{w}", *k1_edge_case(name, h, w), None))
     cases.append(("random_b6 65x65", *realistic_batch(np.random.default_rng(65), 6, hw=65),
                   dict(K1_RECIPE), None))
+    cases.append(("rehearsal_b8 17x17 c4",  # the learning check's E-step ("learn")
+                  *realistic_batch(np.random.default_rng(17), 8, hw=17, c=4), dict(K1_RECIPE),
+                  None))
     return cases
 
 
@@ -1864,6 +1861,79 @@ def variants_phase(device, card: str) -> dict:
     return results
 
 
+#: The learning check's sizes: the strong arm's steps (its contract, final
+#: mIoU >= 0.5, is a hard check) and the weak arm's run-through (phase 1,
+#: an eval every 10 steps, then the refine from "best"; no mIoU threshold).
+LEARN_SUPERVISED_STEPS = 800
+LEARN_STEPS = 200
+LEARN_REFINE = 50
+
+
+def learn_phase(device, card: str) -> dict:
+    """Phase "learn": the EM learning check's tool
+    (``em_adapt_torch/tools/convergence_rehearsal.py``) on the card, f32.
+    The strong arm (``run_supervised_rehearsal``, pixel masks, half width,
+    65x65) must pass its contract. The weak arm's run-through
+    (``run_rehearsal``: full width, 129x129, batch 8, He init, keep 0.5)
+    must keep every loss finite (``Trainer.fit``'s watchdog reads every
+    step's loss and raises on a non-finite one: phase 1 must not be
+    recorded as aborted, and a raise in the refine fails the phase),
+    evaluate at step 0 and every 10 steps, write "best" and
+    ``best_metric.json``, run the refine from "best" to its last step,
+    and launch K1 once in every EM step (the count set to 0 just before
+    the run and read just after; evaluation runs no E-step)."""
+    import shutil
+    import tempfile
+
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.tools import convergence_rehearsal as cr
+
+    log(f"learn: {card}")
+    t0 = time.perf_counter()
+    sup = cr.run_supervised_rehearsal(steps=LEARN_SUPERVISED_STEPS, seed=0, device=device,
+                                      log=lambda m: log(f"learn strong: {m}"))
+    sup_s = time.perf_counter() - t0
+    log(f"learn strong: {LEARN_SUPERVISED_STEPS} steps, mIoU {sup['init_miou']} -> "
+        f"{sup['final_miou']} (per class {sup['per_class_iou']}), {sup_s:.1f} s; card "
+        f"{sup['card']}")
+    if not sup["pass"]:
+        raise AssertionError(f"learn: the strong arm ended at mIoU {sup['final_miou']} < 0.5")
+
+    save_dir = tempfile.mkdtemp(prefix="learn-", dir=os.path.join(ROOT, "build"))
+    try:
+        k1.launches = 0
+        t0 = time.perf_counter()
+        r = cr.run_rehearsal(steps=LEARN_STEPS, seed=0, refine_steps=LEARN_REFINE,
+                             save_dir=save_dir, device=device,
+                             log=lambda m: log(f"learn weak: {m}"))
+        weak_s = time.perf_counter() - t0
+        launches = k1.launches
+        best = os.path.join(save_dir, "best")
+        have_best = (os.path.isdir(best)
+                     and any(os.path.isfile(os.path.join(best, d, "state.pt"))
+                             for d in os.listdir(best))
+                     and os.path.isfile(os.path.join(save_dir, "best_metric.json")))
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    total = LEARN_STEPS + LEARN_REFINE
+    steps = [s for s, _ in r["miou_curve"]]
+    every = LEARN_STEPS // 20
+    log(f"learn weak: {LEARN_STEPS} + {LEARN_REFINE} steps in {weak_s:.1f} s, curve "
+        f"{r['miou_curve']}, peak {r['peak_miou']} at {r['peak_step']}, final "
+        f"{r['final_miou']}; K1 {launches} launches; card {r['card']}")
+    if r["aborted_by_watchdog"] is not None:
+        raise AssertionError(f"learn: the watchdog stopped the run: {r['aborted_by_watchdog']}")
+    if steps[: LEARN_STEPS // every + 1] != list(range(0, LEARN_STEPS + 1, every)):
+        raise AssertionError(f"learn: phase 1's evals at {steps}, expected every {every}")
+    if not have_best:
+        raise AssertionError("learn: no 'best' checkpoint or best_metric.json was written")
+    if not any(LEARN_STEPS < s < total for s in steps) or steps[-1] != total:
+        raise AssertionError(f"learn: the refine did not run (curve steps {steps})")
+    if launches != total:
+        raise AssertionError(f"learn: K1 launched {launches} times in {total} EM steps")
+    return dict(supervised=sup, weak=r, k1_launches=launches, seconds=(sup_s, weak_s))
+
+
 def grads_bf16(device) -> dict:
     """One microstep at full width, bf16, He init, on one batch with the
     same dropout masks and E-step orders, through the fused block 1 (K2
@@ -2681,7 +2751,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the em_adapt_torch package is missing: {PORT_MISSING}",
               file=sys.stderr)
         return 2
-    from em_adapt_torch.device import set_precision
+    from em_adapt_torch.device import card_info, set_precision
     from em_adapt_torch.tools import bench_block1_bwd_parts as parts
     from em_adapt_torch.utils import build
 
@@ -2740,6 +2810,7 @@ def main(argv=None) -> int:
     phase("eval VOC", eval_voc_phase, device, card)
     phase("loop bf16", loop_phase, device, card)
     phase("variants bf16", variants_phase, device, card)
+    phase("learn", learn_phase, device, card)
     phase("grads bf16", grads_bf16, device)
     phase("block1 timing", time_block1_train, device)
     eval_result = phase("eval", evaluate, device)

@@ -1,16 +1,17 @@
 """Command line of the port: ``python -m em_adapt_torch convert|train|eval ...``.
 
     python -m em_adapt_torch convert --voc-seg DIR [--sbd-cls DIR] --out DIR
-    python -m em_adapt_torch train [--synthetic N] [--steps N] [--resume | --warm-start DIR[:STEP]]
-        [--log-jsonl PATH] [--strong-list PATH | --strong-fraction F] [--synthetic-val N]
-        [key=value ...]
+    python -m em_adapt_torch train [--synthetic N [--synthetic-learnable]] [--steps N]
+        [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH]
+        [--strong-list PATH | --strong-fraction F] [--synthetic-val N] [key=value ...]
     python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [key=value ...]
 
 ``convert`` writes the index-PNG masks of ``SegmentationClassAug`` from
 VOC's RGB masks and SBD's .mat files. ``train`` trains on the VOC split
 "train" under ``data.main_path`` and ``data.list_dir`` (or on
-``SyntheticVOC`` with ``--synthetic``) with the reference recipe (or the
-dotted config overrides given), logs a record every
+``SyntheticVOC`` with ``--synthetic``, on ``LearnableSyntheticVOC``'s
+color blobs of ``data.input_size`` with ``--synthetic-learnable`` too)
+with the reference recipe (or the dotted config overrides given), logs a record every
 ``train.log_every_steps`` steps through ``MetricLogger`` (stdout, and
 ``--log-jsonl``), and saves full-state checkpoints under
 ``checkpoint.save_dir`` ("norm" on its cadence, at a SIGTERM and at the
@@ -38,7 +39,7 @@ import sys
 
 from em_adapt_torch.config import ExperimentConfig, apply_overrides, check_supported
 from em_adapt_torch.data.pipeline import (
-    DevicePrefetcher, SyntheticVOC, VOCSegmentation, batch_iterator,
+    DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation, batch_iterator,
 )
 from em_adapt_torch.data.voc import VOC_CLASS_NAMES, convert_dataset
 from em_adapt_torch.device import resolve_device
@@ -113,13 +114,19 @@ def parse_warm_start(spec: str) -> tuple[str, int | None]:
 def make_eval_fn(cfg: ExperimentConfig, args, device):
     """The periodic eval of ``train``: the mIoU of the training model on
     the split "val" (or ``--synthetic-val`` synthetic images, default a
-    quarter of ``--synthetic``, at least 2), at the fixed resolution
-    (``Evaluator.confusion_fixed``) or, with ``train.eval_protocol=voc``,
+    quarter of ``--synthetic``, at least 2; with ``--synthetic-learnable``
+    the learnable task's "val" category at the training seed, whose own
+    offset keeps it apart from the training images), at the fixed
+    resolution (``Evaluator.confusion_fixed``) or, with ``train.eval_protocol=voc``,
     by the VOC protocol (``Evaluator.confusion_voc``), so that "best"
     follows the headline number's protocol."""
     if args.synthetic:
         n_val = args.synthetic_val if args.synthetic_val is not None else max(args.synthetic // 4, 2)
-        val = SyntheticVOC(n_val, cfg.model.num_classes, seed=cfg.train.seed + 1)
+        if args.synthetic_learnable:
+            val = LearnableSyntheticVOC(n_val, cfg.model.num_classes, seed=cfg.train.seed,
+                                        category="val", image_size=cfg.data.input_size[0])
+        else:
+            val = SyntheticVOC(n_val, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
         val = VOCSegmentation(cfg.data, "val")
 
@@ -145,10 +152,17 @@ def cmd_train(args) -> int:
               "flag for the size/4 default, or drop train.eval_every_steps to disable eval)",
               file=sys.stderr)
         return 2
+    if args.synthetic_learnable and not args.synthetic:
+        print("error: --synthetic-learnable needs --synthetic N", file=sys.stderr)
+        return 2
     cfg = apply_overrides(ExperimentConfig(), args.overrides)
     if args.strong_list or args.strong_fraction > 0:
         cfg = cfg.replace(semi_supervised=True)
-    if args.synthetic:
+    if args.synthetic_learnable:
+        data = LearnableSyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed,
+                                     image_size=cfg.data.input_size[0],
+                                     strong_fraction=args.strong_fraction)
+    elif args.synthetic:
         data = SyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed,
                             strong_fraction=args.strong_fraction)
     else:
@@ -204,6 +218,9 @@ def main(argv: list[str] | None = None) -> int:
     train = sub.add_parser("train", help="train on the VOC split 'train' or on synthetic data")
     train.add_argument("--synthetic", type=int, default=None, metavar="N",
                        help="train on N synthetic images instead of the VOC tree")
+    train.add_argument("--synthetic-learnable", action="store_true",
+                       help="with --synthetic: the learnable color-blob task "
+                            "(LearnableSyntheticVOC, blobs of data.input_size) instead of noise")
     train.add_argument("--steps", type=int, default=None,
                        help="cap on the total microbatch steps (default: train.epochs epochs)")
     train.add_argument("--resume", action="store_true",

@@ -1,14 +1,15 @@
-"""Input pipeline: the VOC reader, synthetic VOC-shaped data, the seeded
-batch iterator and the device prefetcher.
+"""Input pipeline: the VOC reader, synthetic VOC-shaped data, the
+learnable rehearsal task, the seeded batch iterator and the device
+prefetcher.
 
-``VOCSegmentation``, ``SyntheticVOC`` and the single-process path of
-``batch_iterator`` are copies of ``em_adapt_tpu/data/pipeline.py``'s
-(train batches, and eval batches with a padded tail): the same files or
-seed give bit-identical batches in both packages. ``DevicePrefetcher``
-is the counterpart of the JAX package's: a thread copies the next batches
-to the card through a ring of pinned host buffers on a copy stream of its
-own while the current step runs. Process sharding comes with ROADMAP.md
-Queue 1 item 11.
+``VOCSegmentation``, ``SyntheticVOC``, ``LearnableSyntheticVOC`` and the
+single-process path of ``batch_iterator`` are copies of
+``em_adapt_tpu/data/pipeline.py``'s (train batches, and eval batches with
+a padded tail): the same files or seed give bit-identical batches in both
+packages. ``DevicePrefetcher`` is the counterpart of the JAX package's: a
+thread copies the next batches to the card through a ring of pinned host
+buffers on a copy stream of its own while the current step runs. Process
+sharding comes with ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -89,6 +90,60 @@ class SyntheticVOC:
         label = g.integers(0, self.num_classes, size=(h, w)).astype(np.uint8)
         label[: h // 8] = 255
         return img, label
+
+
+class LearnableSyntheticVOC:
+    """A learnable weak-supervision rehearsal task: color-coded blobs.
+
+    Every image is ``image_size`` square, a noisy gray background (class
+    0) with 1-2 elliptical blobs, each in its foreground class's color
+    (``CLASS_COLORS``). EM training sees only the images and the tags the
+    E-step derives from the shrunk mask; the masks score the evaluation.
+    A category other than "train" draws from ``seed + 10_000``, so train
+    and val streams of one seed are disjoint. The first
+    ``ceil(strong_fraction * n)`` images are flagged ``is_strong``, the
+    same subset in every run. ``load_raw`` makes the JAX package's draws
+    in its order (em_adapt_tpu/data/pipeline.py:97-151), so both packages
+    give the same bytes.
+    """
+
+    #: mean RGB per class (class 0 = background).
+    CLASS_COLORS = np.array(
+        [[128, 128, 128], [210, 60, 60], [60, 190, 60], [60, 80, 210],
+         [220, 200, 60], [190, 60, 200], [60, 200, 200]], np.float32)
+
+    def __init__(self, n: int = 64, num_classes: int = 4, seed: int = 0,
+                 category: str = "train", image_size: int = 33,
+                 strong_fraction: float = 0.0):
+        if not 2 <= num_classes <= len(self.CLASS_COLORS):
+            raise ValueError(f"num_classes={num_classes}: expected 2..{len(self.CLASS_COLORS)}")
+        self.n = n
+        self.num_classes = num_classes
+        self.seed = seed + (0 if category == "train" else 10_000)
+        self.category = category
+        self.image_size = image_size
+        self.ids = [f"blob_{category}_{i:06d}" for i in range(n)]
+        self.is_strong = np.arange(n) < int(np.ceil(strong_fraction * n))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load_raw(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        g = np.random.default_rng(self.seed * 100003 + i)
+        s = self.image_size
+        label = np.zeros((s, s), np.uint8)
+        img = np.empty((s, s, 3), np.float32)
+        img[:] = self.CLASS_COLORS[0] + g.normal(0, 18, (s, s, 3))
+        yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+        max_blobs = min(2, self.num_classes - 1)
+        for cls in g.choice(np.arange(1, self.num_classes), size=g.integers(1, max_blobs + 1),
+                            replace=False):
+            cy, cx = g.uniform(0.25 * s, 0.75 * s, 2)
+            ry, rx = g.uniform(0.18 * s, 0.32 * s, 2)
+            mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            label[mask] = cls
+            img[mask] = self.CLASS_COLORS[cls] + g.normal(0, 18, (int(mask.sum()), 3))
+        return np.clip(img, 0, 255).astype(np.uint8), label
 
 
 def batch_iterator(

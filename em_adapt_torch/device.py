@@ -7,6 +7,8 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -23,6 +25,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def card_info() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them: the
+    label every time on the card is kept beside."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
 
 
 def set_precision(compute_dtype: str = "float32") -> None:

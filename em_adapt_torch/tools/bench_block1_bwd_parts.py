@@ -33,7 +33,6 @@ import concurrent.futures as cf
 import json
 import re
 import statistics
-import subprocess
 from pathlib import Path
 from typing import NamedTuple
 
@@ -313,13 +312,10 @@ def main(argv=None) -> int:
     parser.add_argument("--iters", type=int, default=100, help="back-to-back launches per run")
     args = parser.parse_args(argv)
 
-    from em_adapt_torch.device import resolve_device
+    from em_adapt_torch.device import card_info, resolve_device
 
     device = resolve_device(None)  # raises without a card
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_info()
     reports = variant_reports(build_variants())
     ms = time_variants(device, args.batch, args.iters)
     print(card, flush=True)

@@ -95,7 +95,7 @@ def main(argv=None) -> int:
                         help="time the other build beside K3 at B=6, 321x321")
     args = parser.parse_args(argv)
 
-    from em_adapt_torch.device import resolve_device
+    from em_adapt_torch.device import card_info, resolve_device
 
     device = resolve_device(None)  # raises without a card
     sys.path.insert(0, str(Path.cwd()))
@@ -133,7 +133,7 @@ def main(argv=None) -> int:
         for spec, t in times.items():
             print(json.dumps({"build": spec, "batch": 6, "size": 321, "ms": statistics.median(t),
                               "min": min(t), "max": max(t)}), flush=True)
-        print(chip_smoke.card_info(), flush=True)
+        print(card_info(), flush=True)
     return 0
 
 

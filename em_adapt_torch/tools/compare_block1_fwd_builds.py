@@ -66,7 +66,7 @@ def main(argv=None) -> int:
                         help="time every build beside the production K2 at B=6, 321x321")
     args = parser.parse_args(argv)
 
-    from em_adapt_torch.device import resolve_device
+    from em_adapt_torch.device import card_info, resolve_device
 
     device = resolve_device(None)  # raises without a card
     sys.path.insert(0, str(Path.cwd()))
@@ -77,7 +77,7 @@ def main(argv=None) -> int:
     specs = [parse_build(s) for s in args.builds]
     with cf.ThreadPoolExecutor(len(specs)) as pool:  # one nvcc per build, together
         libs = list(pool.map(lambda s: build_other(s[0], "block1_fwd", s[1]), specs))
-    print(chip_smoke.card_info(), flush=True)
+    print(card_info(), flush=True)
     for spec, (lib, log) in zip(args.builds, libs):
         r = ptxas_report(log, "block1_fwd_kernel")
         print(f"build {spec}: ptxas {r['registers']} registers, {r['spill_stores']} B spill "
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
         for spec, t in times.items():
             print(json.dumps({"build": spec, "ms": statistics.median(t), "min": min(t),
                               "max": max(t)}), flush=True)
-        print(chip_smoke.card_info(), flush=True)
+        print(card_info(), flush=True)
     return int(total != 0)
 
 

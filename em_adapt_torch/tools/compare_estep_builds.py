@@ -79,7 +79,7 @@ def main(argv=None) -> int:
                         help="time every build beside the production K1 at B=6 and B=30")
     args = parser.parse_args(argv)
 
-    from em_adapt_torch.device import resolve_device
+    from em_adapt_torch.device import card_info, resolve_device
 
     device = resolve_device(None)  # raises without a card
     sys.path.insert(0, str(Path.cwd()))
@@ -92,7 +92,7 @@ def main(argv=None) -> int:
         production = pool.submit(build.build, "estep")
         libs = list(pool.map(lambda s: build_other(s[0], "estep", s[1]), specs))
         production.result()
-    print(chip_smoke.card_info(), flush=True)
+    print(card_info(), flush=True)
     logs = [("production", k1._lib(), build.build_logs[("estep", ())])]
     logs += [(spec, lib, log) for spec, (lib, log) in zip(args.builds, libs)]
     for spec, lib, log in logs:
@@ -154,7 +154,7 @@ def main(argv=None) -> int:
                         "max": max(times[spec]), "prof_ms": prof_ms, "fixed_ms": fixed_ms,
                         "visit_us": visit_us, "busiest_visits": max(present),
                         "rounds_per_visit": k1.search_rounds(digit_bits(lib))}), flush=True)
-        print(chip_smoke.card_info(), flush=True)
+        print(card_info(), flush=True)
     return int(total != 0)
 
 

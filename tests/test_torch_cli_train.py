@@ -103,3 +103,60 @@ def test_config_accepts_the_ported_keys_and_names_item_7_for_the_voc_protocol():
     with pytest.raises(ValueError, match="eval_protocol"):
         pcfg.check_supported(pcfg.apply_overrides(pcfg.ExperimentConfig(),
                                                   ["train.eval_protocol=other"]))
+
+
+def test_cli_synthetic_learnable_trains_and_races_best_on_the_learnable_val_set(
+        tmp_path, monkeypatch):
+    """The counterpart of tests/test_e2e_voc.py::test_train_cli_synthetic_
+    learnable_with_strong_and_eval: --synthetic-learnable trains on
+    LearnableSyntheticVOC (blobs of data.input_size, --strong-fraction
+    flagging the first images) and races "best" over the learnable val set,
+    whose images are the JAX package's val set for the same seed (its
+    category offset, not seed + 1)."""
+    import numpy as np
+
+    from em_adapt_torch import __main__ as cli
+    from em_adapt_tpu.data.pipeline import LearnableSyntheticVOC as JaxLearnable
+
+    made = []
+
+    class Recorded(cli.LearnableSyntheticVOC):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(cli, "LearnableSyntheticVOC", Recorded)
+    log, saver = tmp_path / "learn.jsonl", tmp_path / "saver"
+    assert cli.main(["train", "--synthetic", "16", "--synthetic-learnable", "--synthetic-val", "4",
+                     "--strong-fraction", "0.25", "--steps", "4", "--log-jsonl", str(log),
+                     "--device", "cpu", "model.width_multiplier=0.125", "model.fc6_channels=8",
+                     "model.num_classes=4", "model.input_size=(33, 33)", "model.init_scheme=he",
+                     "data.input_size=(33, 33)", "data.num_workers=2", "estep.num_iter=2",
+                     "optim.accum_steps=1", "train.batch_size=8", "train.log_every_steps=2",
+                     "train.eval_every_steps=2", "train.calibrate_estep=false",
+                     "eval.batch_size=2", f"checkpoint.save_dir={saver}",
+                     "checkpoint.async_save=false"]) == 0
+    train, val = made
+    assert (len(train), train.category, train.image_size) == (16, "train", 33)
+    np.testing.assert_array_equal(train.is_strong, np.arange(16) < 4)
+    want = JaxLearnable(n=4, num_classes=4, seed=0, category="val", image_size=33)
+    assert (len(val), val.category) == (4, "val") and val.ids == want.ids
+    for i in range(4):
+        for got, ref in zip(val.load_raw(i), want.load_raw(i)):
+            np.testing.assert_array_equal(got, ref)
+    records = [json.loads(line) for line in log.read_text().splitlines()]
+    evals = [r for r in records if "val_metric" in r]
+    assert [r["step"] for r in evals] == [2, 4]
+    assert all(np.isfinite(r["loss"]) for r in records if "loss" in r)
+    side = json.loads((saver / "best_metric.json").read_text())
+    assert side["metric"] == max(r["val_metric"] for r in evals)
+    assert (saver / "best" / str(side["step"]) / "state.pt").is_file()
+
+
+def test_cli_synthetic_learnable_without_synthetic_exits_2(tmp_path, capsys):
+    from em_adapt_torch.__main__ import main
+
+    assert main(["train", "--synthetic-learnable", "--device", "cpu",
+                 f"checkpoint.save_dir={tmp_path}"]) == 2
+    assert "--synthetic-learnable needs --synthetic" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
