@@ -24,10 +24,15 @@ loop at three log cadences on cached batches (wall, busy share, host
 syncs outside the cadences); the training variants through the command
 line (tag warm-up, semi-supervision, LR groups, periodic eval with
 "best", a warm start) and He init in f32 and bf16; the EM learning check
-("learn": the rehearsal tool's strong arm to its contract, and a short
-run-through of its weak arm with the refine, K1 once an EM step); and
-the bf16 fixed-resolution evaluation at 321x321, eval batch 6, through
-``Evaluator.evaluate_fixed`` (K2), then checks what comes out. Every
+("learn": the rehearsal tool's strong arm to its contract, a short
+run-through of its weak arm with the refine, K1 once an EM step, and two
+``rehearsal_probe --deterministic`` runs of seed 1 that must agree bit for
+bit); the bf16 fixed-resolution evaluation at 321x321, eval batch 6,
+through ``Evaluator.evaluate_fixed`` (K2); and "export": the predict
+program exported with ``torch.export`` in bf16 (K2 as the operator
+``em_adapt::block1_fwd``) and f32, loaded here and in a fresh process,
+against ``predict_batch``, and the ``predict`` and ``export --format npy``
+commands; then checks what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
 CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
 non-zero before printing any result. ``--quick``
@@ -1931,7 +1936,54 @@ def learn_phase(device, card: str) -> dict:
         raise AssertionError(f"learn: the refine did not run (curve steps {steps})")
     if launches != total:
         raise AssertionError(f"learn: K1 launched {launches} times in {total} EM steps")
-    return dict(supervised=sup, weak=r, k1_launches=launches, seconds=(sup_s, weak_s))
+    probe = deterministic_probes(device, card)
+    return dict(supervised=sup, weak=r, k1_launches=launches, seconds=(sup_s, weak_s),
+                probe=probe)
+
+
+#: Steps of each of the two deterministic probes of the weak arm's seed 1.
+PROBE_STEPS = 30
+
+
+def deterministic_probes(device, card: str) -> dict:
+    """Two ``rehearsal_probe --deterministic`` runs of seed 1 for
+    ``PROBE_STEPS`` steps, each step recorded: their losses must agree bit
+    for bit. The tool's own lines (one a step) are not shown; cuDNN's
+    flags are put back afterwards."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from em_adapt_torch.tools import rehearsal_probe
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    out_dir = tempfile.mkdtemp(prefix="probe-", dir=os.path.join(ROOT, "build"))
+    runs, t0 = [], time.perf_counter()
+    try:
+        for i in range(2):
+            out = os.path.join(out_dir, f"probe{i}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rehearsal_probe.main(["--seeds", "1", "--steps", str(PROBE_STEPS), "--dense",
+                                      str(PROBE_STEPS), "--deterministic", "--out", out,
+                                      "--device", str(device)])
+            with open(out) as f:
+                runs.append(json.load(f)["runs"][0])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        import shutil
+
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = [[r["loss"] for r in run["records"]] for run in runs]
+    log(f"learn probe: seed 1, two --deterministic runs of {PROBE_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s; losses {losses[0][:3]} ... {losses[0][-1]}; "
+        f"bit-equal: {losses[0] == losses[1]}; card {card}")
+    if len(losses[0]) != PROBE_STEPS or losses[0] != losses[1]:
+        diff = next((i for i, (a, b) in enumerate(zip(*losses)) if a != b), None)
+        raise AssertionError(f"learn probe: two --deterministic runs of seed 1 differ (first at "
+                             f"step {diff}) or recorded {len(losses[0])} of {PROBE_STEPS} steps")
+    return dict(losses=losses[0])
 
 
 def grads_bf16(device) -> dict:
@@ -2726,6 +2778,200 @@ def evaluate(device) -> dict:
                 prefetched_images_per_s=EVAL_IMAGES / prefetched_wall, agree=agree)
 
 
+#: The export phase's batches of ``SyntheticVOC`` and the sizes (W, H) of
+#: the JPEGs it gives ``predict``.
+EXPORT_BATCHES = 2
+PREDICT_SIZES = ((500, 375), (333, 500), (320, 240))
+
+#: The fresh process of the export phase: it imports only the export
+#: module, loads the program and labels the saved batches with it.
+_FRESH_EXPORT = """
+import json, sys
+import numpy as np, torch
+from em_adapt_torch.eval import export
+with open(sys.argv[1], "rb") as f:
+    fn = export.load_predict_fn(f.read())
+batches = np.load(sys.argv[2])
+labels = []
+for x in batches:
+    labels.append(fn(torch.from_numpy(x).cuda())[1].cpu().numpy())
+np.save(sys.argv[3], np.stack(labels))
+print(json.dumps({"k2_launches": export.block1.launches}))
+"""
+
+
+def export_phase(device, card: str) -> dict:
+    """Phase "export": ``eval/export.py`` and the serving commands at full
+    width (321x321, 21 classes, eval batch 6, He init). The bf16 program
+    (block 1 as K2, the operator ``em_adapt::block1_fwd``) and the f32 one
+    (block 1 on cuDNN) are each exported, loaded in this process with
+    cuDNN deterministic, and must label ``EXPORT_BATCHES`` batches of
+    ``SyntheticVOC`` as ``Evaluator.predict_batch`` does, launching K2 once
+    a batch in bf16 and never in f32; a fresh process that imports only
+    the export module must agree on >= 99.9% of pixels with the same
+    launches. Times: the exported call against ``predict_batch`` per
+    batch of 6, between CUDA events. Then ``python -m em_adapt_torch
+    predict`` on 3 JPEGs of other sizes from a checkpoint it saves (a
+    palette PNG at each image's size), and ``export --format npy`` read
+    back through ``model.init_model_path`` (every layer bit for bit but
+    fc8, re-initialized by contract)."""
+    import dataclasses
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from em_adapt_torch.__main__ import main as cli
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.device import set_deterministic
+    from em_adapt_torch.eval.export import BLOCK1_OP, export_program, load_predict_fn
+    from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.models.convert import to_jax_params
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+    from em_adapt_torch.ops import block1 as k2
+    from em_adapt_torch.train.checkpoint import CheckpointManager
+
+    base = ExperimentConfig()
+    cfgs = {dt: base.replace(model=dataclasses.replace(base.model, init_scheme="he",
+                                                       compute_dtype=dt, block1_impl=impl))
+            for dt, impl in (("bfloat16", "pallas"), ("float32", "xla"))}
+    bs, c = base.eval.batch_size, base.model.num_classes
+    it = batch_iterator(SyntheticVOC(bs * EXPORT_BATCHES, c, seed=2), base.data, batch_size=bs,
+                        seed=0, epochs=1, train=False)
+    batches = np.stack([b["image"] for b in it])
+    root = tempfile.mkdtemp(prefix="export-", dir=os.path.join(ROOT, "build"))
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    results = {}
+    try:
+        np.save(os.path.join(root, "batches.npy"), batches)
+        model = build_model(cfgs["bfloat16"].model, 0, device)
+        n_params = sum(p.numel() for p in model.parameters())
+        set_deterministic()
+        for dt, cfg in cfgs.items():
+            m = model if dt == "bfloat16" else DeepLabLargeFOV(cfg.model).to(device)
+            m.load_state_dict(model.state_dict())
+            ev = Evaluator(cfg, m)
+            t0 = time.perf_counter()
+            ep = export_program(cfg, m)
+            export_s = time.perf_counter() - t0
+            nodes = [str(n.target) for n in ep.graph.nodes].count(BLOCK1_OP)
+            path = os.path.join(root, f"predict_{dt}.pt2")
+            torch.export.save(ep, path)
+            size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                fn = load_predict_fn(f.read())
+            xs = [torch.from_numpy(x).to(device) for x in batches]
+            k2.launches = 0
+            exported = [fn(x)[1] for x in xs]
+            torch.cuda.synchronize()
+            launches = k2.launches
+            live = [ev.predict_batch(x) for x in xs]
+            same = all(torch.equal(a, b) for a, b in zip(exported, live))
+            times = {"exported": [], "live": []}
+            for _ in range(3):  # alternating rounds, so both see the card alike
+                times["exported"].append(cuda_ms_per_launch(lambda: fn(xs[0]), launches=10,
+                                                            reps=3, warmup=1))
+                times["live"].append(cuda_ms_per_launch(lambda: ev.predict_batch(xs[0]),
+                                                        launches=10, reps=3, warmup=1))
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            out = subprocess.run(
+                [sys.executable, "-c", _FRESH_EXPORT, path, os.path.join(root, "batches.npy"),
+                 os.path.join(root, f"labels_{dt}.npy")],
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                text=True, timeout=300)
+            if out.returncode != 0:
+                raise AssertionError(f"export {dt}: the fresh process failed:\n{out.stderr}")
+            fresh = json.loads(out.stdout.strip().splitlines()[-1])
+            fresh_labels = np.load(os.path.join(root, f"labels_{dt}.npy"))
+            live_np = np.stack([t.cpu().numpy() for t in live])
+            agree = float((fresh_labels == live_np).mean())
+            want = EXPORT_BATCHES if dt == "bfloat16" else 0
+            log(f"export {dt}: {n_params} params, batch {bs}x{base.model.input_size}, exported "
+                f"in {export_s:.1f} s, {size} bytes, {nodes} {BLOCK1_OP} node(s); in this "
+                f"process (cudnn deterministic) labels identical to predict_batch: {same}, K2 "
+                f"launches {launches} in {EXPORT_BATCHES} batches; fresh process: K2 launches "
+                f"{fresh['k2_launches']}, labels agree at {100 * agree:.4f}% of "
+                f"{live_np.size} pixels; per batch of {bs}: exported {ms['exported']:.3f} ms, "
+                f"predict_batch {ms['live']:.3f} ms (10 back-to-back calls between CUDA events, "
+                f"median of 3 alternating rounds of 3: "
+                f"{', '.join(f'{t:.3f}' for t in times['exported'])} against "
+                f"{', '.join(f'{t:.3f}' for t in times['live'])}); card {card}")
+            if nodes != (1 if dt == "bfloat16" else 0):
+                raise AssertionError(f"export {dt}: {nodes} {BLOCK1_OP} nodes in the graph")
+            if not same:
+                raise AssertionError(f"export {dt}: the loaded program's labels differ from "
+                                     "predict_batch's in the same process")
+            if launches != want or fresh["k2_launches"] != want:
+                raise AssertionError(f"export {dt}: K2 launched {launches} times here and "
+                                     f"{fresh['k2_launches']} in the fresh process, expected "
+                                     f"{want}")
+            if agree < 0.999:
+                raise AssertionError(f"export {dt}: the fresh process agrees at only "
+                                     f"{100 * agree:.4f}% of pixels")
+            results[dt] = dict(ms=ms["exported"], live_ms=ms["live"], bytes=size, agree=agree,
+                               launches=launches, fresh_launches=fresh["k2_launches"])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+        # predict on JPEGs through the command line, from a saved checkpoint.
+        ck = os.path.join(root, "ck")
+        from em_adapt_torch.train.trainer import Trainer
+
+        trainer = Trainer(cfgs["bfloat16"].replace(checkpoint=dataclasses.replace(
+            base.checkpoint, save_dir=ck, async_save=False)), device=device)
+        state = trainer.init_state()
+        state.model.load_state_dict(model.state_dict())
+        trainer.checkpointer.save(state, "norm")
+        g = np.random.default_rng(3)
+        imgs = []
+        for i, (w, h) in enumerate(PREDICT_SIZES):
+            low = Image.fromarray(g.integers(0, 256, size=(12, 16, 3), dtype=np.uint8))
+            imgs.append(os.path.join(root, f"img{i}.jpg"))
+            low.resize((w, h), Image.BICUBIC).save(imgs[-1], quality=90)
+        masks = os.path.join(root, "masks")
+        arch = ["model.compute_dtype=bfloat16", "model.init_scheme=he"]
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "em_adapt_torch", "predict", *imgs, "--out", masks,
+             "--checkpoint", ck, *arch], cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+            capture_output=True, text=True, timeout=300)
+        predict_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"predict failed:\n{out.stderr}")
+        lines = [ln for ln in out.stdout.splitlines() if " -> " in ln]
+        if "predicting with checkpoint step 0" not in out.stdout or [
+                ln.split(" -> ")[0] for ln in lines] != imgs:
+            raise AssertionError(f"predict printed:\n{out.stdout}")
+        for img, (w, h) in zip(imgs, PREDICT_SIZES):
+            mask = Image.open(os.path.join(masks, os.path.basename(img)[:-4] + ".png"))
+            if mask.mode != "P" or mask.size != (w, h):
+                raise AssertionError(f"predict: {img}'s mask is {mask.mode} {mask.size}, "
+                                     f"expected P {(w, h)}")
+        log(f"export predict: python -m em_adapt_torch predict on {len(imgs)} JPEGs "
+            f"{PREDICT_SIZES} in {predict_s:.1f} s (process included): a palette mask at each "
+            f"image's size, the lines in input order; card {card}")
+
+        npy = os.path.join(root, "init.npy")
+        if cli(["export", "--out", npy, "--format", "npy", "--checkpoint", ck, *arch]) != 0:
+            raise AssertionError("export --format npy failed")
+        back = to_jax_params(build_model(dataclasses.replace(
+            cfgs["float32"].model, init_model_path=npy), 1, torch.device("cpu")))
+        want = to_jax_params(model)
+        same = [layer for layer in want if layer != "fc8" and all(
+            np.array_equal(back[layer][k], want[layer][k]) for k in ("w", "b"))]
+        if len(same) != len(want) - 1 or np.array_equal(back["fc8"]["w"], want["fc8"]["w"]):
+            raise AssertionError(f"export --format npy: layers bit-equal after the round trip: "
+                                 f"{same}; fc8 must be re-initialized")
+        log(f"export npy: {os.path.getsize(npy)} bytes; through model.init_model_path "
+            f"{len(same)} of {len(want)} layers bit for bit, fc8 re-initialized")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
 def phase(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged after it."""
     t0 = time.perf_counter()
@@ -2814,6 +3060,7 @@ def main(argv=None) -> int:
     phase("grads bf16", grads_bf16, device)
     phase("block1 timing", time_block1_train, device)
     eval_result = phase("eval", evaluate, device)
+    phase("export", export_phase, device, card)
     kernels = [{
         "name": "estep",
         "route": "cuda",

@@ -1,10 +1,18 @@
-"""Command line of the port: ``python -m em_adapt_torch convert|train|eval ...``.
+"""Command line of the port: ``python -m em_adapt_torch
+convert|train|eval|predict|export|import-tf|info ...`` (installed as
+``em-adapt-torch``).
 
     python -m em_adapt_torch convert --voc-seg DIR [--sbd-cls DIR] --out DIR
     python -m em_adapt_torch train [--synthetic N [--synthetic-learnable]] [--steps N]
         [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH]
         [--strong-list PATH | --strong-fraction F] [--synthetic-val N] [key=value ...]
     python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [key=value ...]
+    python -m em_adapt_torch predict IMG... --out DIR [--checkpoint DIR] [--crf] [--overlay]
+        [key=value ...]
+    python -m em_adapt_torch export --out PATH [--checkpoint DIR] [--batch-size N]
+        [--format pt2|npy] [key=value ...]
+    python -m em_adapt_torch import-tf PREFIX --out DIR [key=value ...]
+    python -m em_adapt_torch info
 
 ``convert`` writes the index-PNG masks of ``SegmentationClassAug`` from
 VOC's RGB masks and SBD's .mat files. ``train`` trains on the VOC split
@@ -29,20 +37,39 @@ resolution with ``--fixed-size``: per-class IoU and mIoU. Both run on
 the CUDA card (``--device cpu`` runs on the CPU); training and the fixed
 protocol copy their batches there through ``DevicePrefetcher`` unless
 ``data.prefetch=0``.
+
+The serving commands (``em_adapt_tpu/cli.py:639-919``): ``predict``
+writes a VOC-palette PNG mask per image at the image's own size (the
+network in chunks of ``eval.batch_size``, the tail padded; the logits
+upsampled to the original size, the optional CRF, the argmax; RGB
+overlays with ``--overlay``) and prints ``IMG -> MASK`` per image in input
+order. ``export`` writes the predict program (``torch.export``, ``pt2``,
+the port's word for the JAX package's "stablehlo") or the reference's
+``init.npy`` (``npy``). ``import-tf`` turns a reference TF1 Saver
+checkpoint into a port checkpoint (tag "norm", step 0, fresh optimizer)
+under ``--out``, which ``train --warm-start``, ``eval`` and ``predict``
+load. ``eval``, ``predict`` and ``export`` load the parameters only of the
+latest "norm" checkpoint under ``checkpoint.save_dir`` (``--checkpoint``);
+with none they warn and use a fresh init. ``predict``, ``export`` and
+``import-tf`` run on the card unless ``--device cpu`` is given. ``info``
+prints the versions, the card and the config's defaults.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import os
+import re
 import sys
 
-from em_adapt_torch.config import ExperimentConfig, apply_overrides, check_supported
+from em_adapt_torch.config import ExperimentConfig, apply_overrides, check_supported, flatten
 from em_adapt_torch.data.pipeline import (
     DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation, batch_iterator,
 )
 from em_adapt_torch.data.voc import VOC_CLASS_NAMES, convert_dataset
-from em_adapt_torch.device import resolve_device
+from em_adapt_torch.device import card_info, resolve_device
 from em_adapt_torch.eval.miou import miou_from_confusion
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.models.deeplab import build_model
@@ -56,18 +83,36 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item} brings it")
 
 
-def cmd_eval(args) -> int:
-    if args.int8:
-        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+def _inference_config(args) -> ExperimentConfig:
+    """The overrides, then ``--checkpoint`` as ``checkpoint.save_dir``."""
     cfg = apply_overrides(ExperimentConfig(), args.overrides)
+    if getattr(args, "checkpoint", None):
+        cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint,
+                                                         save_dir=args.checkpoint))
     check_supported(cfg, "eval")
-    device = resolve_device(args.device)
+    return cfg
+
+
+def load_inference_model(cfg: ExperimentConfig, device, verb: str):
+    """The model with the parameters only of the latest "norm" checkpoint
+    under ``checkpoint.save_dir`` (a checkpoint of another optimizer
+    config loads too, ``em_adapt_tpu/cli.py:232-246``), or a fresh init
+    with a warning when there is none."""
     model = build_model(cfg.model, cfg.train.seed, device)
     checkpoints = CheckpointManager(cfg.checkpoint)
     if checkpoints.latest_step("norm") is None:
-        print("warning: no checkpoint found; evaluating fresh init")
+        print(f"warning: no checkpoint found; {verb} fresh init")
     else:
-        print(f"evaluating checkpoint step {checkpoints.restore_params(model, 'norm')}")
+        print(f"{verb} checkpoint step {checkpoints.restore_params(model, 'norm')}")
+    return model
+
+
+def cmd_eval(args) -> int:
+    if args.int8:
+        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+    cfg = _inference_config(args)
+    device = resolve_device(args.device)
+    model = load_inference_model(cfg, device, "evaluating")
     if args.synthetic:
         ds = SyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
@@ -91,6 +136,161 @@ def cmd_eval(args) -> int:
         name = VOC_CLASS_NAMES[i] if i < len(VOC_CLASS_NAMES) else str(i)
         print(f"  IoU[{name}] = {v:.4f}")
     print(f"mIoU = {miou:.4f}" + (" (with CRF)" if crf_applied else ""))
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """Decode, preprocess as ``eval``, run the network in chunks of
+    ``eval.batch_size`` (the tail padded with zeros), upsample each
+    image's logits to its own size, refine with the CRF if ``--crf``
+    (``eval.crf_impl``: on the host or on the card), take the argmax and
+    write palette PNGs (``em_adapt_tpu/cli.py::cmd_predict``)."""
+    if args.int8:
+        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
+    from em_adapt_torch.data.voc import VOC_PALETTE, index_to_rgb
+    from em_adapt_torch.eval.predict import crf_buckets, route
+
+    cfg = _inference_config(args)
+    device = resolve_device(args.device)
+    evaluator = Evaluator(cfg, load_inference_model(cfg, device, "predicting with"))
+    os.makedirs(args.out, exist_ok=True)
+    palette = [c for rgb in VOC_PALETTE for c in rgb]
+    palette += [224, 224, 192] * (256 - len(VOC_PALETTE))
+    on_card_crf = args.crf and cfg.eval.crf_impl == "tpu"
+    ceiling, buckets = crf_buckets(cfg.eval)
+
+    def decode(path: str) -> np.ndarray:
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+
+    def write(pred: np.ndarray, raw: np.ndarray, path: str) -> str:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        mask = Image.fromarray(pred.astype(np.uint8))
+        mask.putpalette(palette)  # "L" -> "P", the indices kept
+        mask_path = os.path.join(args.out, f"{stem}.png")
+        mask.save(mask_path)
+        msg = mask_path
+        if args.overlay:
+            overlay = (0.5 * raw + 0.5 * index_to_rgb(pred)).astype(np.uint8)
+            ov_path = os.path.join(args.out, f"{stem}_overlay.png")
+            Image.fromarray(overlay).save(ov_path)
+            msg += f" (+ {os.path.basename(ov_path)})"
+        return f"{path} -> {msg}  classes={[int(c) for c in np.unique(pred)]}"
+
+    def post_host(lg: np.ndarray, raw: np.ndarray, path: str) -> str:
+        up = resize_bilinear_np(lg, raw.shape[:2])
+        if args.crf:
+            from em_adapt_torch.eval.crf import dense_crf
+
+            e = np.exp(up - up.max(axis=-1, keepdims=True))
+            up = dense_crf(e / e.sum(axis=-1, keepdims=True), raw, cfg.eval)
+        return write(up.argmax(-1), raw, path)
+
+    bs = max(1, min(cfg.eval.batch_size, len(args.inputs)))
+    workers = max(1, cfg.eval.crf_workers if args.crf and not on_card_crf else 2)
+    futures = []
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for start in range(0, len(args.inputs), bs):
+            chunk = args.inputs[start:start + bs]
+            raws = [decode(p) for p in chunk]
+            imgs = np.stack([preprocess_eval(r, None, input_size=cfg.model.input_size)[0]
+                             for r in raws])
+            imgs = np.concatenate([imgs, np.zeros((bs - len(chunk),) + imgs.shape[1:],
+                                                  imgs.dtype)])
+            logits = evaluator.logits(imgs)
+            for i, (raw, path) in enumerate(zip(raws, chunk)):
+                if on_card_crf:
+                    oh, ow = raw.shape[:2]
+                    pred = evaluator.voc_post_device(logits[i:i + 1], [raw],
+                                                     route(oh, ow, ceiling, buckets))[0, :oh, :ow]
+                    futures.append(pool.submit(write, pred, raw, path))
+                else:
+                    futures.append(pool.submit(post_host, logits[i].cpu().numpy(), raw, path))
+            while len(futures) > 4 * workers:
+                print(futures.pop(0).result())
+        for fut in futures:
+            print(fut.result())
+    return 0
+
+
+#: A dotted config override, ``section.field=value``.
+_OVERRIDE = re.compile(r"[A-Za-z_]\w*(\.\w+)+=")
+
+
+def split_predict_positionals(args, extras: list[str]) -> None:
+    """``predict``'s images and overrides are both positional, and options
+    may stand between them. Some Python versions' argparse fill both lists
+    from the first run of positionals and leave a later run unrecognized
+    (``extras``), others give a later run to the overrides: so every
+    positional token that reads ``dotted.key=value`` is an override, and
+    every other one an image, in the order given."""
+    tokens = [*args.inputs, *args.overrides, *extras]
+    args.inputs = [t for t in tokens if not _OVERRIDE.match(t)]
+    args.overrides = [t for t in tokens if _OVERRIDE.match(t)]
+    if not args.inputs:
+        raise SystemExit("predict: no image given")
+
+
+def cmd_export(args) -> int:
+    """The predict program (``pt2``: ``eval/export.py::export_predict_fn``)
+    or the reference's init.npy (``npy``) of the latest checkpoint."""
+    if args.int8:
+        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+    from em_adapt_torch.eval.export import export_params_npy, export_predict_fn
+
+    cfg = _inference_config(args)
+    device = resolve_device(args.device)
+    model = load_inference_model(cfg, device, "exporting")
+    if args.format == "npy":
+        export_params_npy(model, args.out)
+    else:
+        with open(args.out, "wb") as f:
+            f.write(export_predict_fn(cfg, model, args.batch_size))
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
+    return 0
+
+
+def cmd_import_tf(args) -> int:
+    """A reference TF1 Saver checkpoint -> a port checkpoint under
+    ``--out``: a fresh state (zeroed optimizer, step 0) whose parameters
+    are the checkpoint's, saved as "norm" (``em_adapt_tpu/cli.py::cmd_import_tf``)."""
+    from em_adapt_torch.models.convert import to_jax_params
+    from em_adapt_torch.models.tf_import import load_tf_checkpoint_params, params_l2
+
+    cfg = apply_overrides(ExperimentConfig(), args.overrides)
+    cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint, save_dir=args.out,
+                                                     async_save=False))
+    imported = load_tf_checkpoint_params(args.prefix, cfg.model)
+    trainer = Trainer(cfg, device=args.device, steps_per_epoch=1)
+    state = trainer.init_state()
+    print(f"weight L2 before the import (fresh init): {params_l2(to_jax_params(state.model)):.6f}")
+    state.model.load_params(imported)
+    print(f"weight L2 after the import: {params_l2(to_jax_params(state.model)):.6f}")
+    trainer.checkpointer.save(state, "norm")
+    trainer.checkpointer.close()
+    n_params = sum(v.size for layer in imported.values() for v in layer.values())
+    print(f"imported {args.prefix} -> {args.out} ({len(imported)} layers, {n_params:,} params); "
+          f"use with 'train --warm-start {args.out}', 'eval checkpoint.save_dir={args.out}' or "
+          f"'predict --checkpoint {args.out}'")
+    return 0
+
+
+def cmd_info(_args) -> int:
+    import torch
+
+    from em_adapt_torch import __version__
+
+    print(f"em-adapt-torch {__version__}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card_info() if torch.cuda.is_available() else 'no CUDA device'}")
+    for k, v in flatten(ExperimentConfig()).items():
+        print(f"  {k} = {v}")
     return 0
 
 
@@ -250,8 +450,48 @@ def main(argv: list[str] | None = None) -> int:
     ev.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
     ev.add_argument("--device", default=None, help="default: the CUDA card")
     ev.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
-    args = parser.parse_args(argv)
-    return {"convert": cmd_convert, "train": cmd_train, "eval": cmd_eval}[args.command](args)
+    pr = sub.add_parser("predict", help="segment images into palette PNG masks")
+    pr.add_argument("inputs", nargs="+", metavar="IMG", help="image files (jpg/png)")
+    pr.add_argument("--out", required=True, help="output directory for the masks")
+    pr.add_argument("--checkpoint", default=None,
+                    help="checkpoint directory (default: checkpoint.save_dir)")
+    pr.add_argument("--crf", action="store_true",
+                    help="refine with the dense CRF (where: eval.crf_impl)")
+    pr.add_argument("--overlay", action="store_true",
+                    help="also write RGB overlays beside the masks")
+    pr.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
+    pr.add_argument("--device", default=None, help="default: the CUDA card")
+    pr.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
+    ex = sub.add_parser("export", help="the predict program (torch.export) or the weights as "
+                                       "the reference's init.npy")
+    ex.add_argument("--out", required=True, help="output path (.pt2 or .npy)")
+    ex.add_argument("--checkpoint", default=None,
+                    help="checkpoint directory (default: checkpoint.save_dir)")
+    ex.add_argument("--batch-size", type=int, default=None,
+                    help="the program's batch (default: eval.batch_size)")
+    ex.add_argument("--format", choices=("pt2", "npy"), default="pt2",
+                    help="'pt2': torch.export of predict; 'npy': the reference's init.npy "
+                         "({layer: {w: HWIO, b}}, reference deeplab.py:126-129)")
+    ex.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
+    ex.add_argument("--device", default=None, help="default: the CUDA card")
+    ex.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
+    it = sub.add_parser("import-tf", help="a reference tf.train.Saver checkpoint -> a port "
+                                          "checkpoint (train --warm-start, eval, predict)")
+    it.add_argument("prefix", help="Saver prefix, e.g. saver/norm-24000 (no .index/.data suffix)")
+    it.add_argument("--out", required=True,
+                    help="checkpoint directory to write (tag 'norm', step 0)")
+    it.add_argument("--device", default=None, help="default: the CUDA card")
+    it.add_argument("overrides", nargs="*",
+                    help="dotted config overrides, key=value (the checkpoint's architecture)")
+    sub.add_parser("info", help="versions, the card and the config's defaults")
+    args, extras = parser.parse_known_args(argv)
+    if args.command == "predict":
+        split_predict_positionals(args, extras)
+    elif extras:
+        parser.error(f"unrecognized arguments: {' '.join(extras)}")
+    return {"convert": cmd_convert, "train": cmd_train, "eval": cmd_eval,
+            "predict": cmd_predict, "export": cmd_export, "import-tf": cmd_import_tf,
+            "info": cmd_info}[args.command](args)
 
 
 if __name__ == "__main__":

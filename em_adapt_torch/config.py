@@ -51,6 +51,8 @@ class EStepConfig:
 class ModelConfig:
     """DeepLab-LargeFOV (VGG-16 + atrous) knobs (reference deeplab.py:35-107)."""
 
+    #: The registered architecture (``models/registry.py``).
+    name: str = "deeplab_largefov"
     num_classes: int = 21
     input_size: tuple[int, int] = (321, 321)
     input_channels: int = 3
@@ -225,6 +227,19 @@ class ExperimentConfig:
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+def flatten(cfg, prefix: str = "") -> dict[str, object]:
+    """A config tree as {"optim.base_lr": 0.001, ...} (``info``, logs)."""
+    out: dict[str, object] = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        key = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(v):
+            out.update(flatten(v, prefix=key + "."))
+        else:
+            out[key] = v
+    return out
 
 
 def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:

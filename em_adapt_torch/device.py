@@ -38,6 +38,16 @@ def card_info() -> str:
     return out.splitlines()[0]
 
 
+def set_deterministic() -> None:
+    """Make cuDNN pick deterministic algorithms, and stop it timing
+    candidates (``cudnn.deterministic = True``, ``benchmark = False``):
+    two runs of one seed then take the same algorithms and sum in the same
+    order. It changes which kernels the card runs, not the model's
+    arithmetic. Call it before the model is built."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def set_precision(compute_dtype: str = "float32") -> None:
     """Pin float32 math to true float32, for either compute dtype.
 

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from em_adapt_torch.config import ModelConfig
 from em_adapt_torch.data.augment import normalize_uint8
+from em_adapt_torch.models.registry import get_model, register_model
 from em_adapt_torch.ops.block1 import block1_fused, block1_supported
 from em_adapt_torch.ops.conv import conv2d_same
 from em_adapt_torch.ops.pooling import max_pool_same
@@ -145,12 +146,14 @@ def init_params(
 
 
 def build_model(cfg: ModelConfig, seed: int, device: torch.device) -> "DeepLabLargeFOV":
-    """The model with fresh parameters on ``device``: the Caffe init.npy of
-    ``cfg.init_model_path`` or the ``cfg.init_scheme`` draw, made on the
-    CPU from ``seed`` so that a seed gives the same weights everywhere."""
+    """The model ``cfg.name`` names, with fresh parameters on ``device``:
+    the Caffe init.npy of ``cfg.init_model_path`` or the
+    ``cfg.init_scheme`` draw, made on the CPU from ``seed`` so that a seed
+    gives the same weights everywhere."""
+    cls = get_model(cfg.name)
     init_model = load_caffe_init(cfg.init_model_path) if cfg.init_model_path else None
     params = init_params(torch.Generator().manual_seed(seed), cfg, init_model)
-    return DeepLabLargeFOV(cfg).load_params(params).to(device)
+    return cls(cfg).load_params(params).to(device)
 
 
 def load_caffe_init(path: str) -> dict[str, Any]:
@@ -185,6 +188,7 @@ class _Conv(nn.Module):
         return conv2d_same(x, self.weight, self.bias, rate=self.rate, compute_dtype=compute_dtype)
 
 
+@register_model("deeplab_largefov")
 class DeepLabLargeFOV(nn.Module):
     """``model(x, train=..., generator=...)`` -> NHWC float32 logits.
 

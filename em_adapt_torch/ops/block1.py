@@ -16,6 +16,15 @@ backward recomputes y1 and y2) and gives x no gradient, as the JAX
 package's ``stop_gradient`` contract (deeplab.py:370-374): an x that
 needs one raises. There is no fallback from a kernel to its plain version.
 
+Without gradients the forward runs as the registered operator
+``torch.ops.em_adapt.block1_fwd`` (:func:`block1_fwd_op`), whose fake
+implementation gives the output's shape: ``torch.export`` traces with
+fake tensors, which have no memory for the ctypes launch, so an exported
+predict holds the operator as a node of its graph and launches K2 when
+it runs (``eval/export.py``). The autograd Function of training calls
+:func:`_block1_forward` directly: its forward launches K2 once, as
+before, with no dispatch in between.
+
 The arithmetic is the TPU kernel's, not the conv path's: each product
 takes the inputs and weights rounded to x's dtype and sums in f32, and
 each bias is added in f32 *before* the rounding to x's dtype
@@ -232,6 +241,21 @@ def _block1_forward(
     return out
 
 
+@torch.library.custom_op("em_adapt::block1_fwd", mutates_args=())
+def block1_fwd_op(
+    x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+) -> torch.Tensor:
+    """:func:`_block1_forward` as an operator: K2 on a CUDA tensor,
+    :func:`block1_plain` on a CPU tensor."""
+    return _block1_forward(x, w1, b1, w2, b2)
+
+
+@block1_fwd_op.register_fake
+def _block1_fwd_fake(x, w1, b1, w2, b2):
+    b, _, h, w = x.shape
+    return x.new_empty(b, w1.shape[0], (h + 1) // 2, (w + 1) // 2)
+
+
 def block1_bwd(
     x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     b2: torch.Tensor,
@@ -313,9 +337,9 @@ def block1_fused(
     Returns the pooled activations [B, F, (H+1)//2, (W+1)//2] in x.dtype.
     On the card x must be bf16 and F = 64 (full width). With grad mode on
     and a weight that needs a gradient, the backward is :func:`block1_bwd`;
-    x must then need none."""
+    x must then need none. Otherwise it runs :func:`block1_fwd_op`."""
     if not torch.is_grad_enabled():
-        return _block1_forward(x, w1, b1, w2, b2)
+        return block1_fwd_op(x, w1, b1, w2, b2)
     if x.requires_grad:
         raise RuntimeError(
             "block1_fused gives its input no gradient (block 1 is the first layer): "
@@ -323,4 +347,4 @@ def block1_fused(
         )
     if any(t.requires_grad for t in (w1, b1, w2, b2)):
         return _Block1.apply(x, w1, b1, w2, b2)
-    return _block1_forward(x, w1, b1, w2, b2)
+    return block1_fwd_op(x, w1, b1, w2, b2)

@@ -8,7 +8,9 @@
 The port's counterpart of ``tools/convergence_rehearsal.py``, with its
 modes, flags, windows and pass contracts (``weak_contract``,
 ``ablation_contract``, ``fixed_contract``, ``supervised_contract``) and
-one flag more, ``--device`` (default: the CUDA card). Per-step parity
+two flags more, ``--device`` (default: the CUDA card) and
+``--deterministic`` (cuDNN's deterministic algorithms, chosen before any
+model is built: ``device.py::set_deterministic``). Per-step parity
 tests hold the port to the JAX package one step at a time; this tool
 asks what only a long run shows: that image tags alone, through the
 adaptive-bias E-step, lift val mIoU above the ~0.19 all-background fixed
@@ -66,7 +68,7 @@ from em_adapt_torch.config import (
     TrainConfig,
 )
 from em_adapt_torch.data.pipeline import LearnableSyntheticVOC, batch_iterator
-from em_adapt_torch.device import card_info
+from em_adapt_torch.device import card_info, set_deterministic
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.train.trainer import Trainer
 
@@ -553,7 +555,12 @@ def main(argv=None) -> int:
                     help="the warm-up window's LR (rounded to whole epochs), 1e-3 after it")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="cuDNN's deterministic algorithms, no autotuning: a rerun of a seed "
+                         "repeats its run")
     args = ap.parse_args(argv)
+    if args.deterministic:
+        set_deterministic()
     drop = args.lr_drop_epoch
     seeds = range(args.seed, args.seed + args.seeds)
 

@@ -24,7 +24,10 @@ and the val mIoU at step 0 and every ``steps // 20`` steps of a
 4000-step run (200), the points of the rehearsal's own curve. Prints one
 line per record and writes everything as JSON (``--out``).
 ``--estep-impl jax`` runs the E-step's sort reference (plain PyTorch) in
-place of K1, to take the kernel out of a trajectory. On the CPU
+place of K1, to take the kernel out of a trajectory. ``--deterministic``
+sets cuDNN's deterministic algorithms before any model is built, as the
+rehearsal tool's flag does, so that a probe of a seed repeats the tool's
+run of it (and two probes agree bit for bit). On the CPU
 (``--device cpu``) it runs, slowly, at the full size: use few steps.
 """
 
@@ -39,7 +42,7 @@ import time
 import torch
 
 from em_adapt_torch.data.pipeline import LearnableSyntheticVOC, batch_iterator
-from em_adapt_torch.device import card_info, resolve_device
+from em_adapt_torch.device import card_info, resolve_device, set_deterministic
 from em_adapt_torch.ops.resize import resize_nearest_tf
 from em_adapt_torch.tools.convergence_rehearsal import _val_fn, rehearsal_config
 from em_adapt_torch.train.trainer import Trainer, to_device
@@ -145,13 +148,18 @@ def main(argv=None) -> int:
                     help="'jax': the E-step's sort reference in place of K1")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="cuDNN's deterministic algorithms, no autotuning (as the tool's flag)")
     args = ap.parse_args(argv)
+    if args.deterministic:
+        set_deterministic()
     device = resolve_device(args.device)
     card = card_info() if device.type == "cuda" else None
     print(f"card: {card}", flush=True)
     runs = [probe_seed(s, args.steps, args.dense, args.every, device, args.estep_impl)
             for s in args.seeds]
-    result = {"card": card, "platform": device.type, "runs": runs}
+    result = {"card": card, "platform": device.type, "deterministic": args.deterministic,
+              "runs": runs}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)

@@ -459,3 +459,30 @@ def test_committed_torch_em_fixed_spread_probe():
     best_final = max(a["final_miou"] for a in sweep)
     assert x["warm_spread_best_final"] == best_final
     assert x["warm_spread_retains"] == (best_final >= max(0.23, x["prior"]["peak_miou"] - 0.08))
+
+
+@pytest.mark.parametrize("flag", [[], ["--deterministic"]])
+def test_deterministic_flag_sets_cudnn_before_the_runs(flag, tmp_path, monkeypatch):
+    """``--deterministic`` on the rehearsal tool and on the probe sets
+    cuDNN's deterministic algorithms with autotuning off before any run
+    builds a model; without it the flags stay as they were."""
+    from em_adapt_torch.tools import rehearsal_probe as rp
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    seen = []
+
+    def flags():
+        seen.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark))
+
+    monkeypatch.setattr(cr, "run_supervised_rehearsal",
+                        lambda **kw: flags() or {"pass": True})
+    monkeypatch.setattr(rp, "probe_seed", lambda *a, **kw: flags() or {
+        "seed": 1, "estep_impl": "auto", "miou_curve": [], "seconds": 0.0})
+    assert cr.main(["--mode", "strong", "--device", "cpu", *flag,
+                    "--out", str(tmp_path / "s.json")]) == 0
+    assert rp.main(["--seeds", "1", "--device", "cpu", *flag,
+                    "--out", str(tmp_path / "p.json")]) == 0
+    want = (True, False) if flag else (False, True)
+    assert seen == [want, want]
+    assert json.loads((tmp_path / "p.json").read_text())["deterministic"] is bool(flag)

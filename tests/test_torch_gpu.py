@@ -860,3 +860,38 @@ def test_voc_protocol_on_the_card(cuda_device):
     e = np.exp(up - up.max(-1, keepdims=True))
     want = dense_crf(e / e.sum(-1, keepdims=True), img, ev.cfg.eval, method="grid").argmax(-1)
     assert (got == want).mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_exported_bf16_program_launches_k2_and_equals_predict(cuda_device, tmp_path):
+    """A bf16 predict exported on the card holds em_adapt::block1_fwd and,
+    loaded again, launches K2 once a call and labels as the live model
+    does (cuDNN deterministic in both)."""
+    from em_adapt_torch.config import EvalConfig, ExperimentConfig, ModelConfig
+    from em_adapt_torch.device import set_deterministic
+    from em_adapt_torch.eval.export import BLOCK1_OP, export_program, load_predict_fn
+    from em_adapt_torch.models.deeplab import build_model
+    from em_adapt_torch.ops import block1
+
+    cfg = ExperimentConfig(model=ModelConfig(input_size=(65, 65), fc6_channels=64,
+                                             compute_dtype="bfloat16", init_scheme="he"),
+                           eval=EvalConfig(batch_size=2))
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        set_deterministic()
+        model = build_model(cfg.model, 0, cuda_device)
+        ep = export_program(cfg, model)
+        assert [str(n.target) for n in ep.graph.nodes].count(BLOCK1_OP) == 1
+        path = tmp_path / "p.pt2"
+        torch.export.save(ep, str(path))
+        fn = load_predict_fn(path.read_bytes())
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 40, (2, 65, 65, 3)).astype(np.float32)).to(cuda_device)
+        block1.launches = 0
+        _, labels = fn(x)
+        torch.cuda.synchronize()
+        assert block1.launches == 1
+        with torch.no_grad():
+            assert torch.equal(labels, model.eval().predict(x)[1])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved

@@ -16,11 +16,24 @@ Run as a script, it surveys how often each package's own init collapses
 JAX package's ``jax.random.key(seed)`` split as its trainer splits it):
 
     python -m tests.test_torch_rehearsal_collapse --seeds 16 --steps 12 [--first 16]
+
+With ``--track SEED``, it follows one init for many steps in four
+trajectories (the port, the JAX package, and each again with one pixel of
+the first batch moved by one f32 ulp), the draws shared as in
+:func:`track`, and writes per step each one's loss, fc6 live share and
+E-step class shares, and the relative L2 distances port-JAX, port-ulp
+twin and JAX-ulp twin (about 8 s a step on 8 cores):
+
+    python -m tests.test_torch_rehearsal_collapse --track 1 --steps 400 --out PARITY_LONG_TORCH.json
 """
 
 import argparse
 import functools
+import json
+import math
+import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -93,11 +106,23 @@ def _port_state(model):
     return TrainState(model, AccumulatingSGD(params, pc.optim, names=names), torch.Generator())
 
 
+def _jax_draws(jstate):
+    """The key of the JAX state's next step, and the dropout masks (NCHW
+    bool) and class orders it draws, as the port takes them injected."""
+    from em_adapt_tpu.ops.estep import make_class_orders as jax_orders
+
+    rng = jax.random.split(jax.random.fold_in(jstate.rng, jstate.step))[0]
+    drop_rng, order_rng = jax.random.split(rng)
+    masks = tuple(
+        torch.from_numpy(np.array(jax.random.bernoulli(k, KEEP, (8, OUT, OUT, FC6))))
+        .permute(0, 3, 1, 2) for k in jax.random.split(drop_rng, 2))
+    return rng, masks, torch.from_numpy(np.array(jax_orders(order_rng, 5, 4)))
+
+
 def track(seed: int, steps: int) -> list[dict]:
     """``steps`` EM steps from the port's init for ``seed`` in both
     packages, JAX's masks and orders injected into the port: per step the
     two losses and fc6's live share after the update in each."""
-    from em_adapt_tpu.ops.estep import make_class_orders as jax_orders
     from em_adapt_tpu.train.state import TrainState as JaxState
 
     _, pc = _cfgs()
@@ -110,12 +135,7 @@ def track(seed: int, steps: int) -> list[dict]:
     try:
         for _ in range(steps):
             batch = {k: v for k, v in next(it).items() if k in ("image", "label")}
-            rng = jax.random.split(jax.random.fold_in(jstate.rng, jstate.step))[0]
-            drop_rng, order_rng = jax.random.split(rng)
-            masks = tuple(
-                torch.from_numpy(np.array(jax.random.bernoulli(k, KEEP, (8, OUT, OUT, FC6))))
-                .permute(0, 3, 1, 2) for k in jax.random.split(drop_rng, 2))
-            orders = torch.from_numpy(np.array(jax_orders(order_rng, 5, 4)))
+            _, masks, orders = _jax_draws(jstate)
             jstate, jm = step_fn(jstate, jax.tree.map(jnp.asarray, batch))
             m = train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, pc,
                            orders=orders, masks=masks)
@@ -144,6 +164,203 @@ def test_first_steps_track_jax_through_collapse(seed, collapses):
         assert abs(r["live"] - r["jax_live"]) <= 1e-3 + 0.02 * r["jax_live"], (i, r)
     assert (rows[-1]["live"] < DEAD) == collapses, rows
     assert (rows[-1]["jax_live"] < DEAD) == collapses, rows
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_weak():
+    """The JAX step's E-step labels: its forward and ``estep_labels`` with
+    the dropout and order keys that ``_step_fn`` and ``loss_fn`` derive."""
+    from em_adapt_tpu.models import DeepLabLargeFOV as JaxDeepLab
+    from em_adapt_tpu.ops.estep import estep_labels, make_class_orders
+    from em_adapt_tpu.ops.resize import resize_nearest_tf
+
+    jc, _ = _cfgs()
+    model = JaxDeepLab(jc.model)
+
+    def weak(params, batch, rng):
+        drop_rng, order_rng = jax.random.split(rng)
+        logits = model.apply(params, batch["image"], train=True, rng=drop_rng)
+        shrunk = resize_nearest_tf(batch["label"], logits.shape[1:3])[..., 0]
+        orders = make_class_orders(order_rng, jc.estep.num_iter, jc.model.num_classes)
+        return estep_labels(logits, shrunk, orders, jc.estep)
+
+    return jax.jit(weak)
+
+
+def rel_l2(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every parameter of two ``{layer: {"w", "b"}}``
+    trees, in f64."""
+    num = den = 0.0
+    for layer, leaves in b.items():
+        for k, v in leaves.items():
+            v = np.asarray(v, np.float64)
+            num += float(np.sum((np.asarray(a[layer][k], np.float64) - v) ** 2))
+            den += float(np.sum(v * v))
+    return math.sqrt(num / den)
+
+
+def _shares(labels, c: int = 4) -> list[float]:
+    counts = np.bincount(np.asarray(labels).reshape(-1), minlength=c)
+    return (counts / counts.sum()).tolist()
+
+
+def track_long(seed: int, steps: int, log=None) -> dict:
+    """``steps`` EM steps from the port's init for ``seed`` in four
+    trajectories: the port ("port"), the JAX package ("jax"), and each
+    with pixel [0, 0, 0, 0] of the first batch moved up by one f32 ulp
+    ("port_ulp", "jax_ulp"). All four share the batches, and JAX's dropout
+    masks and class orders are injected into both port runs, so the two
+    pairs differ only in that ulp and port-JAX only in arithmetic. Per
+    step (after its update) each run's loss, fc6 live share on the
+    step's batch and E-step class shares, and the relative L2 distances of
+    all parameters: port-JAX ("d_port_jax"), port-port_ulp ("d_port_ulp"),
+    JAX-jax_ulp ("d_jax_ulp")."""
+    from em_adapt_tpu.train.state import TrainState as JaxState
+
+    _, pc = _cfgs()
+    tx, step_fn = _jax_step()
+    weak_fn = _jax_weak()
+    init = to_jax_params(build_model(pc.model, seed, torch.device("cpu")))
+    ports = {}
+    for name in ("port", "port_ulp"):
+        model = DeepLabLargeFOV(pc.model).load_params(init)
+        ports[name] = _port_state(model)
+    jaxes = {name: JaxState.create(jax.tree.map(jnp.asarray, init), tx, jax.random.key(seed + 1))
+             for name in ("jax", "jax_ulp")}
+    rows, it = [], _batches(seed)
+    t0 = time.time()
+    try:
+        for i in range(steps):
+            batch = {k: v for k, v in next(it).items() if k in ("image", "label")}
+            twin = dict(batch)
+            if i == 0:
+                twin["image"] = image = batch["image"].copy()
+                image[0, 0, 0, 0] = np.nextafter(image[0, 0, 0, 0], np.float32(np.inf))
+            inputs = {"port": batch, "port_ulp": twin, "jax": batch, "jax_ulp": twin}
+            rng, masks, orders = _jax_draws(jaxes["jax"])
+            row, params = {"step": i}, {}
+            for name, state in ports.items():
+                m = train_step(state, {k: torch.from_numpy(v) for k, v in inputs[name].items()},
+                               pc, orders=orders, masks=masks)
+                params[name] = to_jax_params(state.model)
+                row[name] = {"loss": m["loss"].item(), "shares": _shares(m["weak"])}
+            for name, js in jaxes.items():
+                b = jax.tree.map(jnp.asarray, inputs[name])
+                weak = weak_fn(js.params, b, rng)
+                jaxes[name], jm = step_fn(js, b)
+                params[name] = jax.tree.map(np.asarray, jaxes[name].params)
+                row[name] = {"loss": float(jm["loss"]), "shares": _shares(weak)}
+            for name in inputs:
+                row[name]["live"] = fc6_live(params[name], inputs[name]["image"])
+            row["d_port_jax"] = rel_l2(params["port"], params["jax"])
+            row["d_port_ulp"] = rel_l2(params["port_ulp"], params["port"])
+            row["d_jax_ulp"] = rel_l2(params["jax_ulp"], params["jax"])
+            row["seconds"] = time.time() - t0
+            rows.append(row)
+            if log is not None:
+                log(row)
+    finally:
+        it.close()
+    return {"seed": seed, "steps": steps, "config": {
+        "input_size": HW, "fc6_channels": FC6, "num_classes": 4, "keep": KEEP,
+        "init_scheme": "he", "batch_size": 8, "lr": 1e-3, "torch_threads": torch.get_num_threads()},
+        "rows": rows}
+
+
+#: The fault criterion (PERF.md): the port-JAX distance that counts as
+#: apart, and the one-step growth that counts as a jump.
+APART, JUMP = 1e-2, 10.0
+
+
+def verdict(rows: list[dict]) -> dict:
+    """The fault criterion on a :func:`track_long` record. ``first_apart``
+    per distance: the first step (1-based count of steps taken) at which it
+    reaches ``APART``, or None. A fault is indicated when port-JAX gets
+    there in fewer than half the steps of either ulp pair (a pair that
+    never does counts as infinitely many), or when in one step port-JAX
+    grows by ``JUMP`` or more while neither ulp pair does (steps where
+    any of the three was 0 before are skipped)."""
+    keys = ("d_port_jax", "d_port_ulp", "d_jax_ulp")
+    first = {k: next((r["step"] + 1 for r in rows if r[k] >= APART), None) for k in keys}
+    inf = float("inf")
+    pj = first["d_port_jax"] or inf
+    ulp = min(first["d_port_ulp"] or inf, first["d_jax_ulp"] or inf)
+    slow = pj < inf and pj < ulp / 2
+    jumps = []
+    for prev, r in zip(rows, rows[1:]):
+        if min(prev[k] for k in keys) <= 0:
+            continue
+        g = {k: r[k] / prev[k] for k in keys}
+        if g["d_port_jax"] >= JUMP and g["d_port_ulp"] < JUMP and g["d_jax_ulp"] < JUMP:
+            jumps.append({"step": r["step"], **g})
+    return {"first_apart": first, "apart_early": slow, "jumps": jumps,
+            "fault": bool(slow or jumps)}
+
+
+def test_track_mode_records_three_steps(tmp_path):
+    """``--track``'s code path for 3 steps from seed 1's init: the record's
+    keys per step and per trajectory, distances that start at 0 < d, and
+    the criterion's verdict, written as JSON."""
+    threads = torch.get_num_threads()
+    out = tmp_path / "track.json"
+    try:
+        assert main(["--track", "1", "--steps", "3", "--threads", "4", "--out", str(out)]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    rec = json.loads(out.read_text())
+    assert rec["seed"] == 1 and rec["steps"] == 3 and len(rec["rows"]) == 3
+    assert set(rec["verdict"]) == {"first_apart", "apart_early", "jumps", "fault"}
+    for i, row in enumerate(rec["rows"]):
+        assert set(row) == {"step", "port", "jax", "port_ulp", "jax_ulp", "d_port_jax",
+                            "d_port_ulp", "d_jax_ulp", "seconds"}
+        assert row["step"] == i
+        for name in ("port", "jax", "port_ulp", "jax_ulp"):
+            assert set(row[name]) == {"loss", "shares", "live"}
+            assert len(row[name]["shares"]) == 4 and abs(sum(row[name]["shares"]) - 1) < 1e-9
+        assert 0 < row["d_port_jax"] < 1e-3 and 0 < row["d_port_ulp"] < 1e-3
+        assert 0 < row["d_jax_ulp"] < 1e-3
+    first = rec["rows"][0]
+    np.testing.assert_allclose(first["port"]["loss"], first["jax"]["loss"], rtol=1e-5)
+
+
+def _rows(pj, pp, jj):
+    return [{"step": i, "d_port_jax": a, "d_port_ulp": b, "d_jax_ulp": c}
+            for i, (a, b, c) in enumerate(zip(pj, pp, jj))]
+
+
+@pytest.mark.parametrize("pj,pp,jj,fault,early,jumps", [
+    # All three part at the same pace: no fault.
+    ([1e-6, 1e-4, 1e-3, 2e-2], [1e-9, 1e-4, 2e-3, 3e-2], [1e-9, 1e-4, 1e-3, 1e-2],
+     False, False, []),
+    # Port-JAX apart at step 2, the ulp pairs at 5 and never: fault (a).
+    ([1e-4, 2e-2, 3e-2, 4e-2, 5e-2], [1e-9, 2e-9, 4e-9, 8e-9, 1e-2], [1e-9] * 5,
+     True, True, [1]),
+    # A tenfold jump in port-JAX alone at step 2: fault (b).
+    ([1e-6, 1e-5, 1e-4, 2e-4], [1e-6, 2e-6, 4e-6, 8e-6], [1e-6, 2e-6, 4e-6, 8e-6],
+     True, False, [1, 2]),
+    # A tenfold jump in all three at once is chaos, not a fault.
+    ([1e-6, 1e-5, 1e-4], [1e-7, 1e-6, 1e-5], [1e-7, 1e-6, 1e-5], False, False, []),
+    # A zero distance before a step skips that step's growth.
+    ([0.0, 1e-5, 2e-5], [0.0, 1e-6, 2e-6], [0.0, 1e-6, 2e-6], False, False, []),
+])
+def test_fault_criterion(pj, pp, jj, fault, early, jumps):
+    v = verdict(_rows(pj, pp, jj))
+    assert v["fault"] is fault and v["apart_early"] is early
+    assert [j["step"] for j in v["jumps"]] == jumps
+
+
+def test_committed_parity_record_matches_its_verdict():
+    """PARITY_LONG_TORCH.json: four 400-step trajectories from seed 1's
+    init, every distance recorded, and the verdict stored with it the one
+    the criterion gives on its rows."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "PARITY_LONG_TORCH.json")
+    with open(path) as f:
+        rec = json.load(f)
+    assert rec["seed"] == 1 and rec["steps"] == 400 and len(rec["rows"]) == 400
+    assert all(np.isfinite(r[k]) for r in rec["rows"]
+               for k in ("d_port_jax", "d_port_ulp", "d_jax_ulp"))
+    assert rec["verdict"] == json.loads(json.dumps(verdict(rec["rows"])))
 
 
 def survey(seeds: int, steps: int, first: int = 0) -> dict:
@@ -184,7 +401,27 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=16)
     ap.add_argument("--first", type=int, default=0, help="the first seed")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--track", type=int, default=None, metavar="SEED",
+                    help="follow SEED's init in four trajectories (see track_long)")
+    ap.add_argument("--out", default=None, help="--track's JSON record")
+    ap.add_argument("--threads", type=int, default=os.cpu_count() or 4,
+                    help="--track's torch threads (default: every core)")
     args = ap.parse_args(argv)
+    if args.track is not None:
+        torch.set_num_threads(args.threads)
+
+        def log(row):
+            print(json.dumps({k: row[k] for k in ("step", "d_port_jax", "d_port_ulp",
+                                                    "d_jax_ulp", "seconds")}
+                             | {n: row[n]["live"] for n in ("port", "jax")}), flush=True)
+
+        result = track_long(args.track, args.steps, log)
+        result["verdict"] = verdict(result["rows"])
+        print(json.dumps(result["verdict"]), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        return 0
     result = survey(args.seeds, args.steps, args.first)
     print({k: v for k, v in result.items() if k != "rows"}, flush=True)
     return 0
