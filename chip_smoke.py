@@ -32,7 +32,13 @@ through ``Evaluator.evaluate_fixed`` (K2); and "export": the predict
 program exported with ``torch.export`` in bf16 (K2 as the operator
 ``em_adapt::block1_fwd``) and f32, loaded here and in a fresh process,
 against ``predict_batch``, and the ``predict`` and ``export --format npy``
-commands; then checks what comes out. Every
+commands; "int8": the int8 model (``eval/quantize.py``) at full width,
+its s8 convolutions on the card against the CPU, its labels against
+f32, its predict beside bf16 and f32, its exported program in a fresh
+process, ``eval --int8`` and ``predict --int8``; and "schedule": the
+schedule rehearsal's three ``train`` processes (control, SIGTERM,
+``--resume``) over a few hundred steps, bit-equal; then checks what
+comes out. Every
 phase raises on failure and the script then exits non-zero; without a
 CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
 non-zero before printing any result. ``--quick``
@@ -2972,6 +2978,255 @@ def export_phase(device, card: str) -> dict:
     return results
 
 
+#: Batches of 6 at 321x321 the int8 model's labels are held against the
+#: float model's on ("int8").
+INT8_AGREE_BATCHES = 2
+#: Layers whose real s8 inputs the card's ``conv_s8`` must give bit for bit
+#: as the CPU's: K padded (conv1_1), the largest im2col (conv1_2), fc6's
+#: 4x4 kernel at rate 12, Cout padded (fc8).
+INT8_CHECK_LAYERS = ("conv1_1", "conv1_2", "fc6", "fc8")
+
+def int8_phase(device, card: str) -> dict:
+    """Phase "int8": ``eval/quantize.py`` at full width (65,140,565
+    parameters, He init, 321x321, eval batch 6) on ``SyntheticVOC``.
+    Calibration on one batch; the card's ``conv_s8`` on the real s8 inputs
+    of ``INT8_CHECK_LAYERS`` bit-equal to the CPU's (a hard check); the
+    int8 labels against the f32 model's on ``INT8_AGREE_BATCHES`` batches;
+    ms per batch of int8 predict beside bf16 predict (block 1 as K2) and
+    f32 predict, between CUDA events (10 back-to-back calls, median of 3
+    alternating rounds of 3), and each one's peak memory; the int8 program
+    (``export_program``) with no ``em_adapt::block1_fwd`` node, loaded in a
+    fresh process that imports only ``eval/export.py`` and launches K2 0
+    times, its labels identical to the live int8 model's; then ``eval
+    --int8`` and ``predict --int8`` through the command line."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from em_adapt_torch.__main__ import main as cli
+    from em_adapt_torch.config import ExperimentConfig
+    from em_adapt_torch.data.pipeline import SyntheticVOC, batch_iterator
+    from em_adapt_torch.eval import quantize
+    from em_adapt_torch.eval.export import BLOCK1_OP, export_program
+    from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+    from em_adapt_torch.ops import block1 as k2
+
+    base = ExperimentConfig()
+    cfgs = {dt: base.replace(model=dataclasses.replace(base.model, init_scheme="he",
+                                                       compute_dtype=dt, block1_impl=impl))
+            for dt, impl in (("float32", "xla"), ("bfloat16", "pallas"))}
+    bs, c = base.eval.batch_size, base.model.num_classes
+    it = batch_iterator(SyntheticVOC(bs * (1 + INT8_AGREE_BATCHES), c, seed=4), base.data,
+                        batch_size=bs, seed=0, epochs=1, train=False)
+    batches = [torch.from_numpy(b["image"]).to(device) for b in it]
+    calib, agree_batches = batches[0], batches[1:]
+    root = tempfile.mkdtemp(prefix="int8-", dir=os.path.join(ROOT, "build"))
+    try:
+        f32 = build_model(cfgs["float32"].model, 0, device)
+        n_params = sum(p.numel() for p in f32.parameters())
+        t0 = time.perf_counter()
+        qmodel = quantize.quantize_model(base.model, f32, [calib])
+        calib_s = time.perf_counter() - t0
+        log(f"int8: {n_params} params, calibrated on one batch of {bs}x{base.model.input_size} "
+            f"in {calib_s:.2f} s (ranges and quantization); card {card}")
+
+        # conv_s8 on the card against the CPU, on the layers' real inputs.
+        seen = {}
+        real = quantize.conv_s8
+
+        def spy(x8, w8, rate):
+            name = next(n for n, layer in qmodel.layers.items() if layer.w8 is w8)
+            if name in INT8_CHECK_LAYERS:
+                seen[name] = (x8, w8, rate)
+            return real(x8, w8, rate)
+
+        quantize.conv_s8 = spy
+        try:
+            with torch.no_grad():
+                qmodel(calib)
+        finally:
+            quantize.conv_s8 = real
+        for name in INT8_CHECK_LAYERS:
+            x8, w8, rate = seen[name]
+            gpu = real(x8, w8, rate).cpu()
+            cpu = real(x8.cpu(), w8.cpu(), rate)
+            differ = int((gpu != cpu).sum())
+            log(f"int8 conv_s8 {name}: x8 {tuple(x8.shape)}, w8 {tuple(w8.shape)}, rate {rate}: "
+                f"card against CPU {differ} of {gpu.numel()} s32 sums differ, |sum| max "
+                f"{int(cpu.abs().max())}")
+            if differ:
+                raise AssertionError(f"int8: conv_s8 on the card differs from the CPU at {name}")
+
+        agree = quantize.quantization_agreement(base.model, f32, qmodel, agree_batches)
+        log(f"int8: labels against the f32 model's on {len(agree_batches)} batches: "
+            f"{100 * agree['pixel_agreement']:.4f}% of {agree['n_pixels']} pixels")
+
+        bf16 = DeepLabLargeFOV(cfgs["bfloat16"].model).to(device)
+        bf16.load_state_dict(f32.state_dict())
+        evs = {"int8": Evaluator(cfgs["float32"], qmodel), "bf16": Evaluator(cfgs["bfloat16"], bf16),
+               "f32": Evaluator(cfgs["float32"], f32)}
+        x = agree_batches[0]
+        peak = {}
+        for name, ev in evs.items():
+            ev.predict_batch(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            ev.predict_batch(x)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - before
+        k2.launches = 0
+        times = {name: [] for name in evs}
+        for _ in range(3):  # alternating rounds, so all see the card alike
+            for name, ev in evs.items():
+                times[name].append(cuda_ms_per_launch(lambda: ev.predict_batch(x), launches=10,
+                                                      reps=3, warmup=1))
+        k2_timed = k2.launches
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        log(f"int8 predict per batch of {bs}: int8 {ms['int8']:.3f} ms, bf16 (K2) "
+            f"{ms['bf16']:.3f} ms, f32 {ms['f32']:.3f} ms (10 back-to-back calls between CUDA "
+            f"events, median of 3 alternating rounds of 3: "
+            + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}" for k, v in times.items())
+            + f"); K2 launched {k2_timed} times in the bf16 rounds; peak memory above the "
+            f"weights: " + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peak.items())
+            + f"; card {card}")
+
+        # Where the int8 predict's device time goes, by kernel.
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(3):
+                evs["int8"].predict_batch(x)
+            torch.cuda.synchronize()
+        rows = device_rows(prof, 3)
+        log(f"int8 profile: device {sum(r[0] for r in rows):.3f} ms a batch in "
+            f"{sum(r[1] for r in rows)} launches; "
+            + "; ".join(f"{ms:.3f} ms {n}x {key[:60]}" for ms, n, key in rows[:8]))
+
+        ep = export_program(cfgs["float32"], qmodel)
+        nodes = [str(n.target) for n in ep.graph.nodes]
+        path = os.path.join(root, "int8.pt2")
+        torch.export.save(ep, path)
+        np.save(os.path.join(root, "batches.npy"), np.stack([b.cpu().numpy()
+                                                            for b in agree_batches]))
+        with torch.no_grad():
+            live = np.stack([qmodel.predict(b)[1].cpu().numpy() for b in agree_batches])
+        out = subprocess.run(
+            [sys.executable, "-c", _FRESH_EXPORT, path, os.path.join(root, "batches.npy"),
+             os.path.join(root, "labels.npy")],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True,
+            timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"int8: the fresh process failed:\n{out.stderr}")
+        fresh = json.loads(out.stdout.strip().splitlines()[-1])
+        same = bool((np.load(os.path.join(root, "labels.npy")) == live).all())
+        log(f"int8 export: {os.path.getsize(path)} bytes, {nodes.count(BLOCK1_OP)} "
+            f"{BLOCK1_OP} nodes, {nodes.count('aten._int_mm.default')} aten._int_mm nodes; "
+            f"fresh process: labels identical to the live int8 model's: {same}, K2 launches "
+            f"{fresh['k2_launches']}")
+        if nodes.count(BLOCK1_OP) or fresh["k2_launches"] or not same:
+            raise AssertionError("int8 export: a K2 node or launch, or labels that differ")
+
+        # The command line: eval --int8 and predict --int8 from a checkpoint.
+        ck = os.path.join(root, "ck")
+        from em_adapt_torch.train.trainer import Trainer
+
+        trainer = Trainer(cfgs["float32"].replace(checkpoint=dataclasses.replace(
+            base.checkpoint, save_dir=ck, async_save=False)), device=device)
+        state = trainer.init_state()
+        state.model.load_state_dict(f32.state_dict())
+        trainer.checkpointer.save(state, "norm")
+        trainer.checkpointer.close()
+        arch = ["model.init_scheme=he", f"checkpoint.save_dir={ck}"]
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):  # 21 IoU lines: only the last is kept
+            rc = cli(["eval", "--synthetic", "12", "--fixed-size", "--int8", *arch])
+        eval_s = time.perf_counter() - t0
+        lines = printed.getvalue().strip().splitlines()
+        if rc != 0 or f"int8 PTQ: calibrated on {bs} images" not in lines:
+            raise AssertionError(f"eval --int8 failed:\n{printed.getvalue()}")
+        g = np.random.default_rng(5)
+        imgs = []
+        for i, (w, h) in enumerate(PREDICT_SIZES):
+            low = Image.fromarray(g.integers(0, 256, size=(12, 16, 3), dtype=np.uint8))
+            imgs.append(os.path.join(root, f"img{i}.jpg"))
+            low.resize((w, h), Image.BICUBIC).save(imgs[-1], quality=90)
+        masks = os.path.join(root, "masks")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "em_adapt_torch", "predict", *imgs, "--out", masks,
+             "--int8", "--checkpoint", ck, "model.init_scheme=he"], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True, timeout=300)
+        predict_s = time.perf_counter() - t0
+        if out.returncode != 0 or "int8 PTQ: calibrated on 3 input images" not in out.stdout:
+            raise AssertionError(f"predict --int8 failed:\n{out.stdout}\n{out.stderr}")
+        for img, (w, h) in zip(imgs, PREDICT_SIZES):
+            mask = Image.open(os.path.join(masks, os.path.basename(img)[:-4] + ".png"))
+            if mask.mode != "P" or mask.size != (w, h):
+                raise AssertionError(f"predict --int8: {img}'s mask is {mask.mode} {mask.size}")
+        log(f"int8 cli: eval --int8 --synthetic 12 --fixed-size {eval_s:.1f} s (in this "
+            f"process), {lines[-1]}; predict --int8 on {len(imgs)} JPEGs {predict_s:.1f} s (process included)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(ms=ms, peak=peak, agree=agree, k2_timed=k2_timed)
+
+
+#: The schedule rehearsal's protocol cut to a few hundred steps at its own
+#: geometry (129x129, full width, fc6 64, 4 classes, batch 8): 24 steps an
+#: epoch, 12 epochs, drops at steps 72, 144 and 216, SIGTERM once step 96
+#: is logged (between the first and second drops).
+SCHEDULE_SMOKE = dict(images=192, val_images=16, epochs=12, lr_drop_epochs=(3, 6, 9),
+                      norm_every=48, log_every=8, eval_every=72, preempt_after_step=96,
+                      poll_seconds=0.5, arm_timeout=600.0)
+
+
+def schedule_phase(device, card: str) -> dict:
+    """Phase "schedule": ``em_adapt_torch/tools/schedule_rehearsal.py`` at
+    ``SCHEDULE_SMOKE``, its three arms through ``python -m em_adapt_torch
+    train --deterministic`` on the card: it fails unless the control's
+    losses and the preempt + resume lineage's agree bit for bit at every
+    logged step, the "lr" snapshots sit at the drop steps in both, and the
+    two "best" sidecars are the same."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from em_adapt_torch.tools import schedule_rehearsal as sr
+
+    proto = dataclasses.replace(sr.PROTOCOL, **SCHEDULE_SMOKE)
+    work = tempfile.mkdtemp(prefix="schedule-", dir=os.path.join(ROOT, "build"))
+    try:
+        lines = []
+        r = sr.run(proto, workdir=work, log=lines.append)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ch = r["checks"]
+    log(f"schedule: {proto.total_steps} steps, drops at {list(proto.lr_drop_steps)}, "
+        f"{' '.join(ln.strip() for ln in lines if '-> SIGTERM' in ln)}, resumed from "
+        f"{r['resume_step']}; seconds {r['elapsed_sec']}; {len(r['loss_stream_control'])} "
+        f"logged losses, bit-equal: {ch['losses_bitexact']} ({ch['post_resume_overlap_records']}"
+        f" after the resume); lr snapshots {ch['lr_snapshots_control']} and "
+        f"{ch['lr_snapshots_preempt']}; best {ch['best_sidecar_control']} and "
+        f"{ch['best_sidecar_preempt']}; val {r['val_curve_control']}; card {r['card']}")
+    drops = list(proto.lr_drop_steps)
+    if not (ch["losses_bitexact"] and ch["post_resume_overlap_ok"] and ch["lr_schedule_ok"]
+            and ch["lr_snapshots_control"] == ch["lr_snapshots_preempt"] == drops
+            and ch["best_lineages_identical"] and ch["best_race_ok"]):
+        raise AssertionError(f"schedule: a resume contract failed: {ch}; mismatches "
+                             f"{r['loss_mismatches'][:5]}")
+    return r
+
+
 def phase(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged after it."""
     t0 = time.perf_counter()
@@ -3061,6 +3316,8 @@ def main(argv=None) -> int:
     phase("block1 timing", time_block1_train, device)
     eval_result = phase("eval", evaluate, device)
     phase("export", export_phase, device, card)
+    phase("int8", int8_phase, device, card)
+    phase("schedule", schedule_phase, device, card)
     kernels = [{
         "name": "estep",
         "route": "cuda",

@@ -4,13 +4,13 @@ convert|train|eval|predict|export|import-tf|info ...`` (installed as
 
     python -m em_adapt_torch convert --voc-seg DIR [--sbd-cls DIR] --out DIR
     python -m em_adapt_torch train [--synthetic N [--synthetic-learnable]] [--steps N]
-        [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH]
+        [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH] [--deterministic]
         [--strong-list PATH | --strong-fraction F] [--synthetic-val N] [key=value ...]
-    python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [key=value ...]
+    python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [--int8] [key=value ...]
     python -m em_adapt_torch predict IMG... --out DIR [--checkpoint DIR] [--crf] [--overlay]
-        [key=value ...]
+        [--int8] [key=value ...]
     python -m em_adapt_torch export --out PATH [--checkpoint DIR] [--batch-size N]
-        [--format pt2|npy] [key=value ...]
+        [--format pt2|npy] [--int8 [--calib-images IMG...]] [key=value ...]
     python -m em_adapt_torch import-tf PREFIX --out DIR [key=value ...]
     python -m em_adapt_torch info
 
@@ -36,7 +36,10 @@ the host or, with ``eval.crf_impl=tpu``, on the card), or at the training
 resolution with ``--fixed-size``: per-class IoU and mIoU. Both run on
 the CUDA card (``--device cpu`` runs on the CPU); training and the fixed
 protocol copy their batches there through ``DevicePrefetcher`` unless
-``data.prefetch=0``.
+``data.prefetch=0``. ``train --deterministic`` makes cuDNN choose
+deterministic algorithms before the model is built
+(``device.py::set_deterministic``), so that runs in separate processes
+sum alike.
 
 The serving commands (``em_adapt_tpu/cli.py:639-919``): ``predict``
 writes a VOC-palette PNG mask per image at the image's own size (the
@@ -50,9 +53,13 @@ checkpoint into a port checkpoint (tag "norm", step 0, fresh optimizer)
 under ``--out``, which ``train --warm-start``, ``eval`` and ``predict``
 load. ``eval``, ``predict`` and ``export`` load the parameters only of the
 latest "norm" checkpoint under ``checkpoint.save_dir`` (``--checkpoint``);
-with none they warn and use a fresh init. ``predict``, ``export`` and
-``import-tf`` run on the card unless ``--device cpu`` is given. ``info``
-prints the versions, the card and the config's defaults.
+with none they warn and use a fresh init. ``--int8`` serves the int8
+post-training quantization of those parameters (``eval/quantize.py``):
+``eval`` calibrates on its first batch, ``predict`` on its first 8
+images, ``export`` on ``--calib-images`` (else on 8 random uint8 images,
+with a warning). ``predict``, ``export`` and ``import-tf`` run on the
+card unless ``--device cpu`` is given. ``info`` prints the versions, the
+card and the config's defaults.
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ from em_adapt_torch.data.pipeline import (
     DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation, batch_iterator,
 )
 from em_adapt_torch.data.voc import VOC_CLASS_NAMES, convert_dataset
-from em_adapt_torch.device import card_info, resolve_device
+from em_adapt_torch.device import card_info, resolve_device, set_deterministic
 from em_adapt_torch.eval.miou import miou_from_confusion
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.models.deeplab import build_model
@@ -77,10 +84,6 @@ from em_adapt_torch.train.checkpoint import CheckpointManager
 from em_adapt_torch.train.trainer import Trainer
 from em_adapt_torch.utils.logging import MetricLogger
 from em_adapt_torch.utils.profiling import measure_estep_us_per_image
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item} brings it")
 
 
 def _inference_config(args) -> ExperimentConfig:
@@ -107,9 +110,19 @@ def load_inference_model(cfg: ExperimentConfig, device, verb: str):
     return model
 
 
+def _load_image(path: str, input_size: tuple[int, int]):
+    """(decoded RGB uint8, the preprocessed network input) of one image file."""
+    import numpy as np
+    from PIL import Image
+
+    from em_adapt_torch.data.augment import preprocess_eval
+
+    with Image.open(path) as im:
+        raw = np.asarray(im.convert("RGB"))
+    return raw, preprocess_eval(raw, None, input_size=input_size)[0]
+
+
 def cmd_eval(args) -> int:
-    if args.int8:
-        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
     cfg = _inference_config(args)
     device = resolve_device(args.device)
     model = load_inference_model(cfg, device, "evaluating")
@@ -117,6 +130,15 @@ def cmd_eval(args) -> int:
         ds = SyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
         ds = VOCSegmentation(cfg.data, "val")
+    if args.int8:
+        from em_adapt_torch.eval.quantize import quantize_model
+
+        calib = batch_iterator(ds, cfg.data, batch_size=cfg.eval.batch_size, seed=0, epochs=1,
+                               train=False)
+        first = next(calib)["image"]
+        calib.close()
+        model = quantize_model(cfg.model, model, [first])
+        print(f"int8 PTQ: calibrated on {first.shape[0]} images")
     evaluator = Evaluator(cfg, model)
     crf_applied = False
     if args.fixed_size:
@@ -144,30 +166,40 @@ def cmd_predict(args) -> int:
     ``eval.batch_size`` (the tail padded with zeros), upsample each
     image's logits to its own size, refine with the CRF if ``--crf``
     (``eval.crf_impl``: on the host or on the card), take the argmax and
-    write palette PNGs (``em_adapt_tpu/cli.py::cmd_predict``)."""
-    if args.int8:
-        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+    write palette PNGs (``em_adapt_tpu/cli.py::cmd_predict``). With
+    ``--int8`` the network is the int8 model, calibrated on the first 8
+    inputs themselves (PTQ needs ranges, not labels), whose decoded and
+    preprocessed pairs are kept for the first chunk."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     from PIL import Image
 
-    from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
+    from em_adapt_torch.data.augment import resize_bilinear_np
     from em_adapt_torch.data.voc import VOC_PALETTE, index_to_rgb
     from em_adapt_torch.eval.predict import crf_buckets, route
 
     cfg = _inference_config(args)
     device = resolve_device(args.device)
-    evaluator = Evaluator(cfg, load_inference_model(cfg, device, "predicting with"))
+    model = load_inference_model(cfg, device, "predicting with")
+    cache: dict[str, tuple[np.ndarray, np.ndarray]] = {}  # the calibration's, used once
+
+    def load_pair(path: str) -> tuple[np.ndarray, np.ndarray]:
+        return cache.pop(path) if path in cache else _load_image(path, cfg.model.input_size)
+
+    if args.int8:
+        from em_adapt_torch.eval.quantize import quantize_model
+
+        for path in args.inputs[:8]:
+            cache[path] = load_pair(path)
+        model = quantize_model(cfg.model, model, [np.stack([c[1] for c in cache.values()])])
+        print(f"int8 PTQ: calibrated on {len(cache)} input images")
+    evaluator = Evaluator(cfg, model)
     os.makedirs(args.out, exist_ok=True)
     palette = [c for rgb in VOC_PALETTE for c in rgb]
     palette += [224, 224, 192] * (256 - len(VOC_PALETTE))
     on_card_crf = args.crf and cfg.eval.crf_impl == "tpu"
     ceiling, buckets = crf_buckets(cfg.eval)
-
-    def decode(path: str) -> np.ndarray:
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"))
 
     def write(pred: np.ndarray, raw: np.ndarray, path: str) -> str:
         stem = os.path.splitext(os.path.basename(path))[0]
@@ -198,9 +230,8 @@ def cmd_predict(args) -> int:
     with ThreadPoolExecutor(max_workers=workers) as pool:
         for start in range(0, len(args.inputs), bs):
             chunk = args.inputs[start:start + bs]
-            raws = [decode(p) for p in chunk]
-            imgs = np.stack([preprocess_eval(r, None, input_size=cfg.model.input_size)[0]
-                             for r in raws])
+            raws, imgs = zip(*(load_pair(p) for p in chunk))
+            imgs = np.stack(imgs)
             imgs = np.concatenate([imgs, np.zeros((bs - len(chunk),) + imgs.shape[1:],
                                                   imgs.dtype)])
             logits = evaluator.logits(imgs)
@@ -239,9 +270,16 @@ def split_predict_positionals(args, extras: list[str]) -> None:
 
 def cmd_export(args) -> int:
     """The predict program (``pt2``: ``eval/export.py::export_predict_fn``)
-    or the reference's init.npy (``npy``) of the latest checkpoint."""
-    if args.int8:
-        raise _not_ported("--int8", "Queue 1 item 9 (int8 PTQ)")
+    or the reference's init.npy (``npy``) of the latest checkpoint. With
+    ``--int8`` the program is the int8 model's, calibrated on
+    ``--calib-images`` or, without them, on 8 random uint8 images
+    (``em_adapt_tpu/cli.py::cmd_export``)."""
+    if args.format == "npy" and (args.int8 or args.calib_images):
+        print("error: --int8/--calib-images apply only to --format pt2 (the npy interchange "
+              "format is the reference's f32 init.npy contract)", file=sys.stderr)
+        return 2
+    import numpy as np
+
     from em_adapt_torch.eval.export import export_params_npy, export_predict_fn
 
     cfg = _inference_config(args)
@@ -250,6 +288,23 @@ def cmd_export(args) -> int:
     if args.format == "npy":
         export_params_npy(model, args.out)
     else:
+        if args.int8:
+            from em_adapt_torch.eval.quantize import quantize_model
+
+            if args.calib_images:
+                calib = np.stack([_load_image(p, cfg.model.input_size)[1]
+                                  for p in args.calib_images])
+            else:
+                # Ranges only: adequate for the first layer, looser than
+                # real images deeper down.
+                h, w = cfg.model.input_size
+                calib = np.random.default_rng(0).integers(0, 256, size=(8, h, w, 3),
+                                                          dtype=np.uint8)
+                print("warning: --int8 without --calib-images calibrates on synthetic data; "
+                      "pass representative images for production artifacts")
+            model = quantize_model(cfg.model, model, [calib])
+            print(f"int8 PTQ applied (s8 x s8 -> s32 convolutions), calibrated on "
+                  f"{len(calib)} images")
         with open(args.out, "wb") as f:
             f.write(export_predict_fn(cfg, model, args.batch_size))
     print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
@@ -356,6 +411,8 @@ def cmd_train(args) -> int:
         print("error: --synthetic-learnable needs --synthetic N", file=sys.stderr)
         return 2
     cfg = apply_overrides(ExperimentConfig(), args.overrides)
+    if args.deterministic:
+        set_deterministic()
     if args.strong_list or args.strong_fraction > 0:
         cfg = cfg.replace(semi_supervised=True)
     if args.synthetic_learnable:
@@ -439,6 +496,9 @@ def main(argv: list[str] | None = None) -> int:
                        help="synthetic data: the fraction of images flagged strong")
     train.add_argument("--synthetic-val", type=int, default=None, metavar="N",
                        help="periodic eval on N synthetic images (default: --synthetic / 4)")
+    train.add_argument("--deterministic", action="store_true",
+                       help="cuDNN's deterministic algorithms, no autotuning (before the model "
+                            "is built): runs in separate processes then sum alike")
     train.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     ev = sub.add_parser("eval", help="mIoU of the latest checkpoint on the VOC split 'val'")
     ev.add_argument("--synthetic", type=int, default=None, metavar="N",
@@ -447,7 +507,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="evaluate at the training resolution instead of the VOC protocol")
     ev.add_argument("--crf", action="store_true",
                     help="refine with the dense CRF (VOC protocol; where: eval.crf_impl)")
-    ev.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
+    ev.add_argument("--int8", action="store_true",
+                    help="evaluate the int8 PTQ model (calibrated on the first eval batch)")
     ev.add_argument("--device", default=None, help="default: the CUDA card")
     ev.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     pr = sub.add_parser("predict", help="segment images into palette PNG masks")
@@ -459,7 +520,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="refine with the dense CRF (where: eval.crf_impl)")
     pr.add_argument("--overlay", action="store_true",
                     help="also write RGB overlays beside the masks")
-    pr.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
+    pr.add_argument("--int8", action="store_true",
+                    help="predict with the int8 PTQ model (calibrated on the inputs themselves)")
     pr.add_argument("--device", default=None, help="default: the CUDA card")
     pr.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     ex = sub.add_parser("export", help="the predict program (torch.export) or the weights as "
@@ -472,7 +534,11 @@ def main(argv: list[str] | None = None) -> int:
     ex.add_argument("--format", choices=("pt2", "npy"), default="pt2",
                     help="'pt2': torch.export of predict; 'npy': the reference's init.npy "
                          "({layer: {w: HWIO, b}}, reference deeplab.py:126-129)")
-    ex.add_argument("--int8", action="store_true", help="int8 PTQ (not ported yet)")
+    ex.add_argument("--int8", action="store_true",
+                    help="export the int8 PTQ model (calibrated on --calib-images, else on "
+                         "random uint8 images)")
+    ex.add_argument("--calib-images", nargs="*", default=None, metavar="IMG",
+                    help="calibration images for --int8")
     ex.add_argument("--device", default=None, help="default: the CUDA card")
     ex.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     it = sub.add_parser("import-tf", help="a reference tf.train.Saver checkpoint -> a port "
@@ -487,7 +553,11 @@ def main(argv: list[str] | None = None) -> int:
     args, extras = parser.parse_known_args(argv)
     if args.command == "predict":
         split_predict_positionals(args, extras)
-    elif extras:
+    elif args.command == "export" and args.calib_images:
+        # --calib-images takes the overrides after it: they read dotted.key=value.
+        args.overrides += [t for t in args.calib_images if _OVERRIDE.match(t)]
+        args.calib_images = [t for t in args.calib_images if not _OVERRIDE.match(t)]
+    if args.command != "predict" and extras:
         parser.error(f"unrecognized arguments: {' '.join(extras)}")
     return {"convert": cmd_convert, "train": cmd_train, "eval": cmd_eval,
             "predict": cmd_predict, "export": cmd_export, "import-tf": cmd_import_tf,

@@ -14,13 +14,16 @@ Block 1 in bf16 on the card (``model.block1_impl`` "auto" or "pallas")
 is K2, registered as the operator ``em_adapt::block1_fwd``
 (``ops/block1.py``): the exported graph holds it as a node, and the
 loaded program launches K2 where it runs, as the JAX artifact carries
-its Pallas kernel. A program exported on the card runs on the card only:
-loading it where there is none raises.
+its Pallas kernel. The int8 model (``eval/quantize.py``) exports the
+same way: its s8 convolutions are ``aten._int_mm`` nodes, block 1
+included, and it has no K2 node. A program exported on the card runs on
+the card only: loading it where there is none raises.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 
 import numpy as np
 import torch
@@ -54,7 +57,7 @@ def export_program(cfg: ExperimentConfig, model: torch.nn.Module,
     h, w = cfg.model.input_size
     b = batch_size or cfg.eval.batch_size
     set_precision(cfg.model.compute_dtype)
-    device = next(model.parameters()).device
+    device = next(itertools.chain(model.parameters(), model.buffers())).device
     images = torch.zeros(b, h, w, 3, dtype=torch.float32, device=device)
     was_training = model.training
     model.eval()

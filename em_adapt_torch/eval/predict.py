@@ -20,6 +20,7 @@ A copy of ``em_adapt_tpu/eval/predict.py`` without its mesh plan:
 from __future__ import annotations
 
 import collections
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -67,14 +68,16 @@ def route(oh: int, ow: int, ceiling: tuple[int, int], buckets) -> tuple[int, int
 
 class Evaluator:
     """Evaluates ``model`` (its weights and device as they are) under
-    ``torch.no_grad()`` and ``model.eval()``."""
+    ``torch.no_grad()`` and ``model.eval()``: a ``DeepLabLargeFOV`` or
+    the int8 ``eval/quantize.py::QuantizedDeepLabLargeFOV``."""
 
     def __init__(self, cfg: ExperimentConfig, model: DeepLabLargeFOV):
         check_supported(cfg, "eval")
         set_precision(cfg.model.compute_dtype)
         self.cfg = cfg
         self.model = model
-        self.device = next(model.parameters()).device
+        # The int8 model holds its weights as buffers.
+        self.device = next(itertools.chain(model.parameters(), model.buffers())).device
 
     @torch.no_grad()
     def logits(self, images) -> torch.Tensor:

@@ -160,9 +160,100 @@ def test_info_prints_versions_and_config(capsys):
 
 
 @pytest.mark.parametrize("command", [["predict", "x.jpg", "--out", "o"], ["export", "--out", "o"]])
-def test_int8_raises_with_item_9(command):
-    with pytest.raises(NotImplementedError, match=r"--int8 .*Queue 1 item 9 \(int8 PTQ\)"):
-        main([*command, "--int8", "--device", "cpu"])
+def test_int8_raises_with_item_9(command, tmp_path, monkeypatch, capsys):
+    """``--int8`` is ported (ROADMAP item 9a): it raises no
+    NotImplementedError any more, only the JAX CLI's errors: ``predict``
+    on an image that is not there; ``export --format npy`` with
+    ``--int8`` or ``--calib-images`` exits 2 and writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    if command[0] == "predict":
+        with pytest.raises(FileNotFoundError):
+            main([*command, "--int8", "--device", "cpu", *SMALL])
+        return
+    for extra in (["--int8"], ["--calib-images", "a.png"]):
+        assert main([*command, "--format", "npy", *extra, "--device", "cpu", *SMALL]) == 2
+        assert "apply only to --format pt2" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+def test_eval_int8_synthetic(tmp_path, capsys):
+    """``eval --int8`` calibrates on the first eval batch and scores the
+    int8 model by both protocols."""
+    nock = f"checkpoint.save_dir={tmp_path / 'nock'}"
+    for protocol in (["--fixed-size"], []):
+        assert main(["eval", "--synthetic", "3", *protocol, "--int8", "--device", "cpu", *SMALL,
+                     "eval.batch_size=2", nock]) == 0
+        out = capsys.readouterr().out
+        assert "int8 PTQ: calibrated on 2 images" in out
+        miou = float(out.strip().splitlines()[-1].split("=")[1])
+        assert 0.0 <= miou <= 1.0
+
+
+def test_predict_int8_on_pngs(tmp_path, capsys, monkeypatch):
+    """``predict --int8`` calibrates on the inputs (each decoded once) and
+    writes a mask per image at its size."""
+    g = np.random.default_rng(5)
+    imgs = []
+    for i, (w, h) in enumerate(((40, 30), (25, 47), (33, 33))):
+        imgs.append(str(tmp_path / f"im{i}.png"))
+        Image.fromarray(g.integers(0, 256, size=(h, w, 3), dtype=np.uint8)).save(imgs[-1])
+    opened = []
+    real_open = Image.open
+    monkeypatch.setattr(Image, "open", lambda p, *a, **k: opened.append(str(p)) or real_open(
+        p, *a, **k))
+    out = tmp_path / "masks"
+    assert main(["predict", *imgs, "--out", str(out), "--int8", "--device", "cpu", *SMALL,
+                 "eval.batch_size=2", f"checkpoint.save_dir={tmp_path / 'nock'}"]) == 0
+    printed = capsys.readouterr().out
+    assert "int8 PTQ: calibrated on 3 input images" in printed
+    assert [ln.split(" -> ")[0] for ln in _lines(printed)] == imgs
+    assert sorted(opened) == sorted(imgs)
+    for img in imgs:
+        mask = Image.open(out / (os.path.basename(img)[:-4] + ".png"))
+        assert mask.mode == "P" and mask.size == Image.open(img).size
+
+
+@pytest.mark.parametrize("with_images", [False, True])
+def test_export_int8_program_labels_as_the_live_int8_model(with_images, tmp_path, capsys):
+    """``export --int8`` (with ``--calib-images`` or on 8 random uint8
+    images): the program loads and labels as the live quantized model
+    calibrated on the same images, and holds no K2 node."""
+    import io
+
+    from em_adapt_torch import config as pcfg
+    from em_adapt_torch.data.augment import preprocess_eval
+    from em_adapt_torch.eval.export import BLOCK1_OP, load_predict_fn
+    from em_adapt_torch.eval.quantize import quantize_model
+
+    cfg = pcfg.apply_overrides(pcfg.ExperimentConfig(), SMALL)
+    g = np.random.default_rng(6)
+    raws = [g.integers(0, 256, size=(50, 40, 3), dtype=np.uint8) for _ in range(2)]
+    calib_args = []
+    if with_images:
+        for i, raw in enumerate(raws):
+            calib_args.append(str(tmp_path / f"c{i}.png"))
+            Image.fromarray(raw).save(calib_args[-1])
+        calib = np.stack([preprocess_eval(r, None, input_size=(33, 33))[0] for r in raws])
+    else:
+        calib = np.random.default_rng(0).integers(0, 256, size=(8, 33, 33, 3), dtype=np.uint8)
+    pt2 = str(tmp_path / "q.pt2")
+    argv = ["export", "--out", pt2, "--int8", "--batch-size", "2", "--device", "cpu"]
+    if calib_args:
+        argv += ["--calib-images", *calib_args]
+    assert main([*argv, *SMALL, f"checkpoint.save_dir={tmp_path / 'nock'}"]) == 0
+    out = capsys.readouterr().out
+    assert ("warning: --int8 without --calib-images" in out) != with_images
+    live = quantize_model(cfg.model, build_model(cfg.model, cfg.train.seed, torch.device("cpu")),
+                          [calib])
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 33, 33, 3)).astype(np.float32)
+                         * 50)
+    with open(pt2, "rb") as f:
+        blob = f.read()
+    _, labels = load_predict_fn(blob)(x)
+    with torch.no_grad():
+        np.testing.assert_array_equal(labels.numpy(), live.predict(x)[1].numpy())
+    ep = torch.export.load(io.BytesIO(blob))
+    assert BLOCK1_OP not in [str(n.target) for n in ep.graph.nodes]
 
 
 @pytest.mark.parametrize("command", [

@@ -193,8 +193,11 @@ def test_eval_cli_on_cpu(capsys, tmp_path):
         "  IoU[background", "  IoU[aeroplane", "  IoU[bicycle", "  IoU[bird"]
     miou = float(out[-1].removeprefix("mIoU = "))
     assert 0.0 <= miou <= 1.0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(args + ["--int8"])
+    # --int8 scores the int8 model, calibrated on the first batch.
+    assert main(args + ["--int8"]) == 0
+    int8 = capsys.readouterr().out.splitlines()
+    assert "int8 PTQ: calibrated on 2 images" in int8
+    assert 0.0 <= float(int8[-1].removeprefix("mIoU = ")) <= 1.0
     # --crf with --fixed-size warns and scores the fixed protocol as before.
     assert main(args + ["--crf"]) == 0
     captured = capsys.readouterr()

@@ -169,3 +169,33 @@ def test_block1_op_is_k2_plain_on_the_cpu_and_passes_opcheck():
     assert torch.equal(torch.ops.em_adapt.block1_fwd(x, w1, b1, w2, b2), out)
     torch.library.opcheck(block1_fwd_op, (x, w1, b1, w2, b2),
                           test_utils=("test_schema", "test_faketensor"))
+
+
+def test_int8_program_loads_in_a_fresh_process(tmp_path):
+    """The int8 program of the fixture's weights (``eval/quantize.py``)
+    loads in a fresh process that imports only ``eval/export.py``, as the
+    f32 and bf16 programs do, and labels as the live quantized model."""
+    import subprocess
+    import sys
+
+    from em_adapt_torch.eval.quantize import quantize_model
+
+    z, _, np_params = _fixture()
+    cfg, model = _port(np_params)
+    x = z["x"]
+    qmodel = quantize_model(cfg.model, model, [x])
+    path = tmp_path / "int8.pt2"
+    path.write_bytes(export_predict_fn(cfg, qmodel))
+    with torch.no_grad():
+        live = qmodel.predict(torch.from_numpy(x))[1].numpy()
+    np.save(tmp_path / "x.npy", x)
+    fresh = ("import sys, numpy as np, torch\n"
+             "from em_adapt_torch.eval import export\n"
+             "fn = export.load_predict_fn(open(sys.argv[1], 'rb').read())\n"
+             "np.save(sys.argv[3], fn(torch.from_numpy(np.load(sys.argv[2])))[1].numpy())\n"
+             "assert 'em_adapt_torch.eval.quantize' not in sys.modules\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", fresh, str(path), str(tmp_path / "x.npy"),
+                    str(tmp_path / "labels.npy")], check=True, cwd=repo, timeout=120,
+                   env={**os.environ, "PYTHONPATH": repo})
+    np.testing.assert_array_equal(np.load(tmp_path / "labels.npy"), live)

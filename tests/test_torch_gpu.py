@@ -895,3 +895,28 @@ def test_exported_bf16_program_launches_k2_and_equals_predict(cuda_device, tmp_p
             assert torch.equal(labels, model.eval().predict(x)[1])
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate,kh,cin,cout,b,h", [
+    (1, 3, 3, 64, 2, 65),      # conv1_1: K = 27, padded to 32
+    (1, 3, 64, 64, 1, 161),    # conv1_2 at a 161x161 map
+    (12, 4, 512, 256, 2, 41),  # fc6's 4x4 kernel at rate 12, width cut
+    (1, 1, 1024, 21, 2, 41),   # fc8: Cout = 21, padded to 24
+    (2, 3, 16, 8, 1, 3),       # 9 rows: padded to 17
+])
+def test_conv_s8_on_the_card_equals_the_cpu(cuda_device, rate, kh, cin, cout, b, h):
+    """``eval/quantize.py::conv_s8`` (``torch._int_mm`` over the im2col)
+    on the card gives the CPU's s32 sums bit for bit, saturated inputs
+    included."""
+    from em_adapt_torch.eval.quantize import conv_s8
+
+    g = torch.Generator().manual_seed(10 * rate + kh)
+    x8 = torch.randint(-127, 128, (b, h, h, cin), generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (kh, kh, cin, cout), generator=g, dtype=torch.int8)
+    x8[0, 0] = 127
+    w8[..., 0] = -127
+    want = conv_s8(x8, w8, rate)
+    got = conv_s8(x8.to(cuda_device), w8.to(cuda_device), rate)
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
