@@ -37,8 +37,11 @@ its s8 convolutions on the card against the CPU, its labels against
 f32, its predict beside bf16 and f32, its exported program in a fresh
 process, ``eval --int8`` and ``predict --int8``; and "schedule": the
 schedule rehearsal's three ``train`` processes (control, SIGTERM,
-``--resume``) over a few hundred steps, bit-equal; then checks what
-comes out. Every
+``--resume``) over a few hundred steps, bit-equal; "presets": each
+``train --preset`` for 3 full-width steps (K1-K3 launches a step, wall,
+device time, peak memory); and "accuracy": the CRF tuning and the
+accuracy-cost tools at a cut size, every arm on the card; then checks
+what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
 CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
 non-zero before printing any result. ``--quick``
@@ -1509,12 +1512,13 @@ def eval_voc_phase(device, card: str) -> dict:
         logits = on_card.logits(np.concatenate([x, np.zeros((bs - len(imgs), *x.shape[1:]),
                                                           x.dtype)]))
         ms = cuda_ms(lambda: on_card.voc_post_device(logits, imgs, b), reps=3, warmup=1)
-        bound_ms = bs * iters * crf_grid_bytes(b, c, base.eval) / HBM_BYTES_PER_S * 1e3
-        per_bucket[b] = dict(ms_per_image=ms / bs, bound_ms_per_image=bound_ms / bs)
+        n = len(imgs)  # padding rows are not refined
+        bound_ms = n * iters * crf_grid_bytes(b, c, base.eval) / HBM_BYTES_PER_S * 1e3
+        per_bucket[b] = dict(ms_per_image=ms / n, bound_ms_per_image=bound_ms / n)
         log(f"{tag} card CRF bucket {b[0]}x{b[1]}: {ms:.2f} ms per batch of {bs} rows "
-            f"({len(imgs)} images, {bs - len(imgs)} padded), {ms / bs:.2f} ms per row (upsample, "
-            f"softmax, {iters} iterations, argmax, the label copy; median of 3 between CUDA "
-            f"events); bound {bound_ms / bs:.3f} ms per row by bytes (the grid of "
+            f"({n} images, {bs - n} padded and not refined), {ms / n:.2f} ms per image "
+            f"(upsample, softmax, {iters} iterations, argmax, the label copy; median of 3 "
+            f"between CUDA events); bound {bound_ms / n:.3f} ms per image by bytes (the grid of "
             f"{crf_device.grid_cells(*b, base.eval)} cells x {c + 1} f32 read and written once "
             f"per blur axis per iteration at {HBM_BYTES_PER_S / 1e12:.2f} TB/s) ({card})")
 
@@ -3227,6 +3231,142 @@ def schedule_phase(device, card: str) -> dict:
     return r
 
 
+#: Phase "presets": steps of each ``train --preset`` at full width, and
+#: of them profiled on a cached batch for the device time.
+PRESET_STEPS, PRESET_PROFILED = 3, 2
+#: K1, K2 and K3 launches a step of each preset.
+PRESET_LAUNCHES = {
+    "reference": dict(estep=1, block1_fwd=0, block1_bwd=0),
+    "gpu-perf": dict(estep=1, block1_fwd=1, block1_bwd=1),
+    "gpu-perf-fold": dict(estep=1, block1_fwd=1, block1_bwd=1),
+    "gpu-highres": dict(estep=1, block1_fwd=1, block1_bwd=1),
+}
+
+
+def presets_phase(device, card: str) -> dict:
+    """Phase "presets": each of ``train --preset``'s bundles
+    (``__main__.py::train_presets``) at full width through ``Trainer.fit``
+    for ``PRESET_STEPS`` steps on ``SyntheticVOC`` batches
+    (``train_variant``: K1, K2 and K3 launches a step as
+    ``PRESET_LAUNCHES`` says, counted from 0 over the run, finite losses,
+    the first loss ln(C) + wd·L2), then ``PRESET_PROFILED`` steps on one
+    cached batch under torch.profiler: the wall per step, the device time
+    per step and the peak memory of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from em_adapt_torch.__main__ import train_presets
+
+    out = {}
+    for name, overrides in train_presets().items():
+        r = train_variant(device, card, f"preset {name}", overrides, PRESET_STEPS,
+                          PRESET_LAUNCHES[name])
+        trainer, state, batch = r["trainer"], r["state"], r["cached"]
+        n_params = sum(p.numel() for p in state.model.parameters())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PRESET_PROFILED):
+                float(trainer.train_step(state, batch)["loss"])
+            prof_wall = (time.perf_counter() - t0) * 1e3 / PRESET_PROFILED
+        rows = device_rows(prof, PRESET_PROFILED)
+        busy = sum(ms for ms, _, _ in rows) if rows else None
+        per_step = {k: v // PRESET_STEPS for k, v in r["launches"].items()}
+        log(f"presets: {name}: {n_params:,} parameters, batch {trainer.cfg.train.batch_size} x "
+            f"accumulation {trainer.cfg.optim.accum_steps} at {trainer.cfg.model.input_size}; "
+            f"wall {r['step_ms']:.2f} ms a step (fit, median over steps 1..{PRESET_STEPS - 1}); "
+            f"device {measured(busy, 2, 'ms')} a step over {PRESET_PROFILED} profiled steps "
+            f"({prof_wall:.2f} ms wall each); peak {r['peak']} B ({r['peak'] / 2**30:.2f} "
+            f"GiB); launches a step {per_step}; {card}")
+        if n_params != 65_140_565:
+            raise AssertionError(f"presets: {name} has {n_params} parameters, not full width")
+        out[name] = dict(step_ms=r["step_ms"], device_ms=busy, peak=r["peak"],
+                         launches=per_step)
+        del r, trainer, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+#: Phase "accuracy": the cut size of both accuracy-cost tools.
+ACCURACY_PRIOR_STEPS = 20
+ACCURACY_IMAGES = 8
+
+
+def accuracy_phase(device, card: str) -> dict:
+    """Phase "accuracy": ``tools/crf_tuning.py`` and ``tools/accuracy_cost.py``
+    through at a cut size on a ``ACCURACY_PRIOR_STEPS``-step weak-EM
+    checkpoint (``run_rehearsal``, its "best"): the tuning on 8 tune and 8
+    measurement images over two settings (the VOC point and a small
+    bilateral kernel), then every arm of the accuracy cost on 1 stream of 8
+    images. It fails unless every arm gives a mIoU in [0, 1], the card
+    CRF (``crf_device.crf_refine``) ran on the card in ``crf_tpu`` and
+    ``crf_tuned_tpu``, and the int8 arms' s8 convolutions
+    (``quantize.conv_s8``) ran on the card."""
+    import shutil
+    import tempfile
+
+    from em_adapt_torch.eval import crf_device
+    from em_adapt_torch.eval import quantize as pq
+    from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.tools import accuracy_cost as ac
+    from em_adapt_torch.tools import convergence_rehearsal as cr
+    from em_adapt_torch.tools import crf_tuning as ct
+
+    work = tempfile.mkdtemp(prefix="accuracy-", dir=os.path.join(ROOT, "build"))
+    seen = {"crf": [], "s8": []}
+    real_refine, real_s8 = crf_device.crf_refine, pq.conv_s8
+
+    def refine(probs, *a, **k):
+        seen["crf"].append(probs.device.type)
+        return real_refine(probs, *a, **k)
+
+    def s8(x8, *a, **k):
+        seen["s8"].append(x8.device.type)
+        return real_s8(x8, *a, **k)
+
+    try:
+        t0 = time.perf_counter()
+        cr.run_rehearsal(steps=ACCURACY_PRIOR_STEPS, seed=0, refine_steps=0, save_dir=work,
+                         device=device, log=lambda m: None)
+        ct.check_lattice(device)
+        cfg = ct.task_config()
+        model, step = ct.load_model(cfg, work, "best", device)
+        t1 = time.perf_counter()
+        tuning = ct.run_tuning(
+            Evaluator(cfg, model), cfg, tune_images=ACCURACY_IMAGES, val_images=ACCURACY_IMAGES,
+            stage_a=[dict(crf_bi_sxy=121.0, crf_bi_srgb=5.0, crf_bi_compat=10.0),
+                     dict(crf_bi_sxy=16.0, crf_bi_srgb=5.0, crf_bi_compat=10.0)],
+            stage_b=lambda best: [], log=lambda m: None)
+        t2 = time.perf_counter()
+        crf_device.crf_refine, pq.conv_s8 = refine, s8
+        try:
+            arms = ac.build_arms(cfg, model, ac.calibration_batch(cfg), tuning["best_setting"])
+            stream = ac.measure(arms, [ac.FIRST_SEED], ACCURACY_IMAGES, cfg.model.input_size[0],
+                                log=lambda m: None)[0]
+        finally:
+            crf_device.crf_refine, pq.conv_s8 = real_refine, real_s8
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    got = {k: (v["miou"], v["elapsed_sec"]) for k, v in stream["arms"].items()}
+    log(f"accuracy: prior {ACCURACY_PRIOR_STEPS} steps (best at step {step}) in {t1 - t0:.1f} s; "
+        f"tuning over {len(tuning['sweep'])} settings, {ACCURACY_IMAGES} + "
+        f"{ACCURACY_IMAGES} images, in {t2 - t1:.1f} s: best {tuning['best_setting']}, "
+        f"measurement {tuning['measurement']['f32_miou']} -> "
+        f"{tuning['measurement']['crf_tuned_miou']}; arms (mIoU, s) {got} in {t3 - t2:.1f} s; "
+        f"card CRF calls {len(seen['crf'])} on {sorted(set(seen['crf']))}, s8 convolutions "
+        f"{len(seen['s8'])} on {sorted(set(seen['s8']))}; {card}")
+    want = ["f32", "int8", "crf_host", "crf_tpu", "crf_tuned", "int8_crf_tuned", "crf_tuned_tpu"]
+    if list(got) != want or not all(0.0 <= m <= 1.0 for m, _ in got.values()):
+        raise AssertionError(f"accuracy: arms {got}")
+    if not seen["crf"] or set(seen["crf"]) != {"cuda"}:
+        raise AssertionError(f"accuracy: the card CRF ran on {seen['crf']}")
+    if not seen["s8"] or set(seen["s8"]) != {"cuda"}:
+        raise AssertionError(f"accuracy: the s8 convolutions ran on {seen['s8']}")
+    return dict(arms=got, tuning=tuning["best_setting"])
+
+
 def phase(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged after it."""
     t0 = time.perf_counter()
@@ -3318,6 +3458,8 @@ def main(argv=None) -> int:
     phase("export", export_phase, device, card)
     phase("int8", int8_phase, device, card)
     phase("schedule", schedule_phase, device, card)
+    phase("presets", presets_phase, device, card)
+    phase("accuracy", accuracy_phase, device, card)
     kernels = [{
         "name": "estep",
         "route": "cuda",

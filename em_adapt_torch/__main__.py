@@ -4,12 +4,14 @@ convert|train|eval|predict|export|import-tf|info ...`` (installed as
 
     python -m em_adapt_torch convert --voc-seg DIR [--sbd-cls DIR] --out DIR
     python -m em_adapt_torch train [--synthetic N [--synthetic-learnable]] [--steps N]
+        [--preset reference|gpu-perf|gpu-perf-fold|gpu-highres] [--profile-dir DIR]
         [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH] [--deterministic]
         [--strong-list PATH | --strong-fraction F] [--synthetic-val N] [key=value ...]
-    python -m em_adapt_torch eval [--synthetic N] [--fixed-size] [--crf] [--int8] [key=value ...]
-    python -m em_adapt_torch predict IMG... --out DIR [--checkpoint DIR] [--crf] [--overlay]
-        [--int8] [key=value ...]
-    python -m em_adapt_torch export --out PATH [--checkpoint DIR] [--batch-size N]
+    python -m em_adapt_torch eval [--checkpoint DIR[:TAG]] [--synthetic N] [--fixed-size]
+        [--crf] [--int8] [key=value ...]
+    python -m em_adapt_torch predict IMG... --out DIR [--checkpoint DIR[:TAG]] [--crf]
+        [--overlay] [--int8] [key=value ...]
+    python -m em_adapt_torch export --out PATH [--checkpoint DIR[:TAG]] [--batch-size N]
         [--format pt2|npy] [--int8 [--calib-images IMG...]] [key=value ...]
     python -m em_adapt_torch import-tf PREFIX --out DIR [key=value ...]
     python -m em_adapt_torch info
@@ -28,6 +30,10 @@ end; "lr" before each LR drop; "best" on an improved periodic eval, with
 checkpoint, on the batches the run would have seen next; ``--warm-start``
 takes only the parameters of a checkpoint. ``--strong-list`` (or
 ``--strong-fraction`` on synthetic data) turns on semi-supervision.
+``--preset`` applies one of :func:`train_presets`' override bundles before
+the dotted overrides (which win over it); ``--profile-dir`` writes a
+torch.profiler trace of the first ``utils/profiling.py::TRACE_STEPS``
+steps there (``trace_steps``).
 ``eval`` loads the latest "norm" parameters
 (a fresh init, with a warning, when there are none) and scores them on the
 split "val" (or a synthetic one) by the VOC protocol (each image at its
@@ -52,8 +58,9 @@ the port's word for the JAX package's "stablehlo") or the reference's
 checkpoint into a port checkpoint (tag "norm", step 0, fresh optimizer)
 under ``--out``, which ``train --warm-start``, ``eval`` and ``predict``
 load. ``eval``, ``predict`` and ``export`` load the parameters only of the
-latest "norm" checkpoint under ``checkpoint.save_dir`` (``--checkpoint``);
-with none they warn and use a fresh init. ``--int8`` serves the int8
+latest "norm" checkpoint under ``checkpoint.save_dir``, or of the latest
+TAG checkpoint under DIR with ``--checkpoint DIR[:TAG]`` (TAG "norm" by
+default); with none they warn and use a fresh init. ``--int8`` serves the int8
 post-training quantization of those parameters (``eval/quantize.py``):
 ``eval`` calibrates on its first batch, ``predict`` on its first 8
 images, ``export`` on ``--calib-images`` (else on 8 random uint8 images,
@@ -80,33 +87,35 @@ from em_adapt_torch.device import card_info, resolve_device, set_deterministic
 from em_adapt_torch.eval.miou import miou_from_confusion
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.models.deeplab import build_model
-from em_adapt_torch.train.checkpoint import CheckpointManager
+from em_adapt_torch.train.checkpoint import CheckpointManager, split_checkpoint
 from em_adapt_torch.train.trainer import Trainer
 from em_adapt_torch.utils.logging import MetricLogger
-from em_adapt_torch.utils.profiling import measure_estep_us_per_image
+from em_adapt_torch.utils.profiling import measure_estep_us_per_image, trace_steps
 
 
-def _inference_config(args) -> ExperimentConfig:
-    """The overrides, then ``--checkpoint`` as ``checkpoint.save_dir``."""
+def _inference_config(args) -> tuple[ExperimentConfig, str]:
+    """The overrides, then ``--checkpoint DIR[:TAG]``'s DIR as
+    ``checkpoint.save_dir``; (the config, TAG, "norm" by default)."""
     cfg = apply_overrides(ExperimentConfig(), args.overrides)
+    tag = "norm"
     if getattr(args, "checkpoint", None):
-        cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint,
-                                                         save_dir=args.checkpoint))
+        save_dir, tag = split_checkpoint(args.checkpoint, "norm")
+        cfg = cfg.replace(checkpoint=dataclasses.replace(cfg.checkpoint, save_dir=save_dir))
     check_supported(cfg, "eval")
-    return cfg
+    return cfg, tag
 
 
-def load_inference_model(cfg: ExperimentConfig, device, verb: str):
-    """The model with the parameters only of the latest "norm" checkpoint
+def load_inference_model(cfg: ExperimentConfig, device, verb: str, tag: str = "norm"):
+    """The model with the parameters only of the latest ``tag`` checkpoint
     under ``checkpoint.save_dir`` (a checkpoint of another optimizer
     config loads too, ``em_adapt_tpu/cli.py:232-246``), or a fresh init
     with a warning when there is none."""
     model = build_model(cfg.model, cfg.train.seed, device)
     checkpoints = CheckpointManager(cfg.checkpoint)
-    if checkpoints.latest_step("norm") is None:
+    if checkpoints.latest_step(tag) is None:
         print(f"warning: no checkpoint found; {verb} fresh init")
     else:
-        print(f"{verb} checkpoint step {checkpoints.restore_params(model, 'norm')}")
+        print(f"{verb} checkpoint step {checkpoints.restore_params(model, tag)}")
     return model
 
 
@@ -123,9 +132,9 @@ def _load_image(path: str, input_size: tuple[int, int]):
 
 
 def cmd_eval(args) -> int:
-    cfg = _inference_config(args)
+    cfg, tag = _inference_config(args)
     device = resolve_device(args.device)
-    model = load_inference_model(cfg, device, "evaluating")
+    model = load_inference_model(cfg, device, "evaluating", tag)
     if args.synthetic:
         ds = SyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
@@ -179,9 +188,9 @@ def cmd_predict(args) -> int:
     from em_adapt_torch.data.voc import VOC_PALETTE, index_to_rgb
     from em_adapt_torch.eval.predict import crf_buckets, route
 
-    cfg = _inference_config(args)
+    cfg, tag = _inference_config(args)
     device = resolve_device(args.device)
-    model = load_inference_model(cfg, device, "predicting with")
+    model = load_inference_model(cfg, device, "predicting with", tag)
     cache: dict[str, tuple[np.ndarray, np.ndarray]] = {}  # the calibration's, used once
 
     def load_pair(path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -282,9 +291,9 @@ def cmd_export(args) -> int:
 
     from em_adapt_torch.eval.export import export_params_npy, export_predict_fn
 
-    cfg = _inference_config(args)
+    cfg, tag = _inference_config(args)
     device = resolve_device(args.device)
-    model = load_inference_model(cfg, device, "exporting")
+    model = load_inference_model(cfg, device, "exporting", tag)
     if args.format == "npy":
         export_params_npy(model, args.out)
     else:
@@ -398,6 +407,58 @@ def make_eval_fn(cfg: ExperimentConfig, args, device):
     return eval_fn
 
 
+#: The "gpu-perf" levers: bf16 compute with block 1 on K2 and K3, the uint8
+#: wire, labels shrunk to the 41x41 score map on the host.
+_GPU_PERF = ("model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+             "data.wire_dtype=uint8", "data.train_label_size=(41,41)")
+
+
+def train_presets() -> dict[str, tuple[str, ...]]:
+    """Named override bundles that ``train --preset`` applies before the
+    dotted overrides (``em_adapt_tpu/cli.py:249-286``, named for the card):
+
+    * "reference": the reference's recipe (f32, batch 6 x accumulation 5);
+    * "gpu-perf": the same update with the card's levers (:data:`_GPU_PERF`);
+    * "gpu-perf-fold": "gpu-perf" with the effective batch 30 folded into
+      one batch-30 step, accumulation 1 (the same update for weak
+      supervision; not under semi-supervision, where the strong images'
+      masked cross-entropy normalizes per batch, and ``train`` warns);
+    * "gpu-highres": 513x513, bf16, per-block remat, the uint8 wire (the
+      65x65 score map: K1 over a cluster of CTAs an image). The JAX
+      preset's spatial mesh axis comes with multi-GPU (ROADMAP item 11).
+
+    The JAX presets' ``train.macro_steps`` and ``train.rng_impl`` are left
+    out: the port accepts them and does not use them (``config.py``)."""
+    return {
+        "reference": (),
+        "gpu-perf": _GPU_PERF,
+        "gpu-perf-fold": _GPU_PERF + ("train.batch_size=30", "optim.accum_steps=1"),
+        "gpu-highres": ("model.compute_dtype=bfloat16", "data.wire_dtype=uint8",
+                        "model.input_size=(513,513)", "model.remat=true"),
+    }
+
+
+#: ``train``'s warning for "gpu-perf-fold" under semi-supervision
+#: (``em_adapt_tpu/cli.py:347-353``).
+FOLD_SEMI_WARNING = (
+    "WARNING: gpu-perf-fold with semi-supervised training is NOT update-identical to the "
+    "batch-6 x accum-5 recipe: the strong-path CE normalizes by each batch's valid (non-255) "
+    "pixel count, so the batch-30 mean differs from the mean of five batch-6 means whenever "
+    "microbatches carry different numbers of void pixels. Use --preset gpu-perf for exact "
+    "accumulation semantics.")
+
+
+def train_config(args) -> ExperimentConfig:
+    """``train``'s config: the preset's overrides, then the user's
+    (``--strong-list``/``--strong-fraction`` turn on semi-supervision)."""
+    cfg = apply_overrides(ExperimentConfig(), [*train_presets()[args.preset], *args.overrides])
+    if args.strong_list or args.strong_fraction > 0:
+        cfg = cfg.replace(semi_supervised=True)
+    if args.preset == "gpu-perf-fold" and cfg.semi_supervised:
+        print(FOLD_SEMI_WARNING, file=sys.stderr)
+    return cfg
+
+
 def cmd_train(args) -> int:
     if args.warm_start and args.resume:
         print("error: --warm-start and --resume are mutually exclusive", file=sys.stderr)
@@ -410,11 +471,9 @@ def cmd_train(args) -> int:
     if args.synthetic_learnable and not args.synthetic:
         print("error: --synthetic-learnable needs --synthetic N", file=sys.stderr)
         return 2
-    cfg = apply_overrides(ExperimentConfig(), args.overrides)
+    cfg = train_config(args)
     if args.deterministic:
         set_deterministic()
-    if args.strong_list or args.strong_fraction > 0:
-        cfg = cfg.replace(semi_supervised=True)
     if args.synthetic_learnable:
         data = LearnableSyntheticVOC(args.synthetic, cfg.model.num_classes, seed=cfg.train.seed,
                                      image_size=cfg.data.input_size[0],
@@ -455,7 +514,9 @@ def cmd_train(args) -> int:
     batches = batch_iterator(data, cfg.data, batch_size=cfg.train.batch_size, seed=cfg.train.seed,
                              start_step=state.step)
     try:
-        trainer.fit(state, batches, num_steps=args.steps, log_fn=log_fn, eval_fn=eval_fn)
+        with trace_steps(args.profile_dir, trainer.device) as step_hook:
+            trainer.fit(state, batches, num_steps=args.steps, log_fn=log_fn, eval_fn=eval_fn,
+                        step_hook=step_hook)
     finally:
         batches.close()  # fit has closed its prefetcher, so no thread is inside the generator
         logger.close()
@@ -496,11 +557,21 @@ def main(argv: list[str] | None = None) -> int:
                        help="synthetic data: the fraction of images flagged strong")
     train.add_argument("--synthetic-val", type=int, default=None, metavar="N",
                        help="periodic eval on N synthetic images (default: --synthetic / 4)")
+    train.add_argument("--preset", choices=tuple(train_presets()), default="reference",
+                       help="override bundle applied before the dotted overrides: 'reference' "
+                            "(the reference's recipe), 'gpu-perf' (bf16, block 1 on K2/K3, "
+                            "uint8 wire, 41x41 labels), 'gpu-perf-fold' (gpu-perf folded into "
+                            "one batch-30 step; not update-identical under semi-supervision), "
+                            "'gpu-highres' (513x513, bf16, remat, uint8 wire)")
+    train.add_argument("--profile-dir", default=None, metavar="DIR",
+                       help="write a torch.profiler trace of the first steps to DIR")
     train.add_argument("--deterministic", action="store_true",
                        help="cuDNN's deterministic algorithms, no autotuning (before the model "
                             "is built): runs in separate processes then sum alike")
     train.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     ev = sub.add_parser("eval", help="mIoU of the latest checkpoint on the VOC split 'val'")
+    ev.add_argument("--checkpoint", default=None, metavar="DIR[:TAG]",
+                    help="checkpoint directory and tag (default: checkpoint.save_dir, 'norm')")
     ev.add_argument("--synthetic", type=int, default=None, metavar="N",
                     help="evaluate on N synthetic images instead of the VOC tree")
     ev.add_argument("--fixed-size", action="store_true",
@@ -514,8 +585,8 @@ def main(argv: list[str] | None = None) -> int:
     pr = sub.add_parser("predict", help="segment images into palette PNG masks")
     pr.add_argument("inputs", nargs="+", metavar="IMG", help="image files (jpg/png)")
     pr.add_argument("--out", required=True, help="output directory for the masks")
-    pr.add_argument("--checkpoint", default=None,
-                    help="checkpoint directory (default: checkpoint.save_dir)")
+    pr.add_argument("--checkpoint", default=None, metavar="DIR[:TAG]",
+                    help="checkpoint directory and tag (default: checkpoint.save_dir, 'norm')")
     pr.add_argument("--crf", action="store_true",
                     help="refine with the dense CRF (where: eval.crf_impl)")
     pr.add_argument("--overlay", action="store_true",
@@ -527,8 +598,8 @@ def main(argv: list[str] | None = None) -> int:
     ex = sub.add_parser("export", help="the predict program (torch.export) or the weights as "
                                        "the reference's init.npy")
     ex.add_argument("--out", required=True, help="output path (.pt2 or .npy)")
-    ex.add_argument("--checkpoint", default=None,
-                    help="checkpoint directory (default: checkpoint.save_dir)")
+    ex.add_argument("--checkpoint", default=None, metavar="DIR[:TAG]",
+                    help="checkpoint directory and tag (default: checkpoint.save_dir, 'norm')")
     ex.add_argument("--batch-size", type=int, default=None,
                     help="the program's batch (default: eval.batch_size)")
     ex.add_argument("--format", choices=("pt2", "npy"), default="pt2",

@@ -33,6 +33,14 @@ from em_adapt_torch.eval.miou import ConfusionAccumulator, miou_from_confusion
 from em_adapt_torch.models.deeplab import DeepLabLargeFOV
 
 
+#: Bytes of bilateral grid (cells x (classes + 1) f32) that the on-card
+#: CRF refines at once; a bucket batch whose grids need more is refined a
+#: chunk of images at a time (two grids of the chunk's size live at once).
+#: A small bilateral kernel makes a large grid: at 129x129, sxy 4 and srgb
+#: 3 it is 692,664,984 cells, 13.9 GB an image at 4 classes.
+CRF_GRID_BYTES = 16 * 2**30
+
+
 def _pad_rows(stack: np.ndarray, target: int) -> np.ndarray:
     """Zero-pad dim 0 up to ``target`` rows: the tail batch keeps the
     batch shape."""
@@ -182,7 +190,11 @@ class Evaluator:
         padding, of size (1, 1)) upsampled to its original size inside
         ``bucket`` (TF1 grid, the host resize's to the bit), softmax,
         mean-field CRF under the validity mask, argmax. Returns [B,BH,BW]
-        uint8 labels on the host; only the valid region is meaningful."""
+        uint8 labels on the host; only the valid region of the first
+        ``len(raw_imgs)`` is meaningful (padding rows are not refined).
+        The CRF runs on chunks of images whose grids fit
+        :data:`CRF_GRID_BYTES`: each image's grid cells are its own, so
+        the labels do not depend on the chunking."""
         from em_adapt_torch.eval import crf_device
         from em_adapt_torch.ops.resize import resize_bilinear_tf_padded
 
@@ -201,12 +213,18 @@ class Evaluator:
         mask = ((torch.arange(bh, device=dev)[None, :, None] < hw[:, 0, None, None])
                 & (torch.arange(bw, device=dev)[None, None, :] < hw[:, 1, None, None]))
         e = (up - up.amax(-1, keepdim=True)).exp()
-        q = crf_device.crf_refine(
-            e / e.sum(-1, keepdim=True), torch.from_numpy(rgbs).to(dev), mask,
+        probs, rgb = e / e.sum(-1, keepdim=True), torch.from_numpy(rgbs).to(dev)
+        per_image = crf_device.grid_cells(bh, bw, cfg) * (probs.shape[-1] + 1) * 4
+        chunk = max(1, CRF_GRID_BYTES // per_image)
+        n = len(raw_imgs)  # padding rows are not refined: their labels stay 0
+        labels = [crf_device.crf_refine(
+            probs[i:min(i + chunk, n)], rgb[i:min(i + chunk, n)], mask[i:min(i + chunk, n)],
             bi_sxy=float(cfg.crf_bi_sxy), bi_srgb=float(cfg.crf_bi_srgb),
             bi_compat=float(cfg.crf_bi_compat), g_sxy=float(cfg.crf_g_sxy),
-            g_compat=float(cfg.crf_g_compat), iterations=int(cfg.crf_iterations))
-        return q.argmax(-1).to(torch.uint8).cpu().numpy()
+            g_compat=float(cfg.crf_g_compat), iterations=int(cfg.crf_iterations)).argmax(-1)
+            for i in range(0, n, chunk)]
+        labels.append(torch.zeros((b - n, bh, bw), dtype=torch.int64, device=dev))
+        return torch.cat(labels).to(torch.uint8).cpu().numpy()
 
     def _confusion_voc_device(self, dataset, bs: int) -> np.ndarray:
         """The VOC protocol with the CRF on the model's device: images

@@ -3,7 +3,7 @@
 
     python -m em_adapt_torch.tools.schedule_rehearsal [--out PATH] [--workdir DIR]
         [--knobs reference|perf] [--regime semi|weak-warmstart] [--warm-start DIR[:TAG]]
-        [--device DEV]
+        [--arms all|control] [--device DEV]
 
 The port's counterpart of ``tools/schedule_rehearsal.py``. The
 reference's production run (reference deeplab.py:242-285) is 40 epochs
@@ -42,6 +42,11 @@ Every arm runs with ``train --deterministic``: under cuDNN's default
 algorithms two processes of one seed part from the first logged loss on
 (PERF.md §6), and a resumed run is another process than the one
 it continues. The artifact records it.
+
+``--arms control`` runs the control arm alone and writes only its val
+curve, its "best" sidecar and its wall (no artifact by default): it
+re-makes the control's "best" checkpoint under ``--workdir`` for tools
+that measure it (``accuracy_cost.py``, ``crf_tuning.py``).
 
 The artifact (``--out``; by default ``SCHEDULE_REHEARSAL_TORCH.json``,
 ``SCHEDULE_REHEARSAL_TORCH_PERF.json`` or ``SCHEDULE_REHEARSAL_TORCH_WEAK.json``,
@@ -243,10 +248,17 @@ def _card(device: str | None) -> str | None:
     return card_info()
 
 
+def _sidecar(save_dir: str) -> dict:
+    with open(os.path.join(save_dir, "best_metric.json")) as f:
+        return json.load(f)
+
+
 def run(proto: Protocol = PROTOCOL, *, knobs: str = "reference", regime: str = "semi",
         warm_start: str | None = None, workdir: str | None = None, device: str | None = None,
-        log=print) -> dict:
-    """The three arms and the artifact's dict (``pass`` included)."""
+        arms: str = "all", log=print) -> dict:
+    """The three arms and the artifact's dict (``pass`` included); with
+    ``arms="control"`` the control arm alone and a dict of its val curve,
+    its "best" sidecar and its wall."""
     knob_args = PERF_KNOBS if knobs == "perf" else ()
     weak = regime == "weak-warmstart"
     strong_fraction = 0.0 if weak else proto.strong_fraction
@@ -285,6 +297,12 @@ def run(proto: Protocol = PROTOCOL, *, knobs: str = "reference", regime: str = "
     if rc != 0:
         raise RuntimeError(f"control arm failed with rc={rc}")
     log(f"control done in {t_c:.0f}s")
+    if arms == "control":
+        return {"regime": regime, "knobs": knobs, "total_steps": proto.total_steps,
+                "val_curve_control": _val_stream(_read_jsonl(jl_c)),
+                "best_sidecar_control": _sidecar(dir_c),
+                "elapsed_sec": {"control": round(t_c, 1)}, "workdir": work,
+                "card": _card(device)}
     log("=== arm 2/3: preempt (SIGTERM mid-run) ===")
     rc, t_p1 = _run(proto, cmd(dir_p, jl_p1, *warm_args), log, preempt_jsonl=jl_p1)
     if rc != 0:
@@ -312,11 +330,7 @@ def run(proto: Protocol = PROTOCOL, *, knobs: str = "reference", regime: str = "
     best_step_c, best_val_c = _first_argmax(val_c)
     best_step_p, best_val_p = _first_argmax(val_p)
 
-    def sidecar(d):
-        with open(os.path.join(d, "best_metric.json")) as f:
-            return json.load(f)
-
-    side_c, side_p = sidecar(dir_c), sidecar(dir_p)
+    side_c, side_p = _sidecar(dir_c), _sidecar(dir_p)
     lr_snaps_c, lr_snaps_p = _ckpt_steps(dir_c, "lr"), _ckpt_steps(dir_p, "lr")
     norm_c = _ckpt_steps(dir_c, "norm")
     drops = list(proto.lr_drop_steps)
@@ -393,8 +407,23 @@ def main(argv=None, proto: Protocol = PROTOCOL) -> int:
     ap.add_argument("--warm-start", default=None, metavar="DIR[:TAG]",
                     help="--regime weak-warmstart's prior (default: train one with the "
                          "convergence rehearsal's protocol)")
+    ap.add_argument("--arms", choices=("all", "control"), default="all",
+                    help="'control': the control arm alone, to re-make its checkpoints under "
+                         "--workdir (no contracts; --out only if given)")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
+    if args.arms == "control":
+        from em_adapt_torch.device import set_deterministic
+
+        set_deterministic()
+        result = run(proto, knobs=args.knobs, regime=args.regime, warm_start=args.warm_start,
+                     workdir=args.workdir, device=args.device, arms="control",
+                     log=lambda m: print(m, flush=True))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        print(json.dumps(result))
+        return 0
     out = args.out or ("SCHEDULE_REHEARSAL_TORCH_WEAK.json" if args.regime == "weak-warmstart"
                        else "SCHEDULE_REHEARSAL_TORCH_PERF.json" if args.knobs == "perf"
                        else "SCHEDULE_REHEARSAL_TORCH.json")

@@ -34,6 +34,16 @@ STATE_FILE = "state.pt"
 ROLLING_TAGS = ("norm", "best")
 
 
+def split_checkpoint(spec: str, default_tag: str) -> tuple[str, str]:
+    """'DIR[:TAG]' -> (DIR, TAG), ``default_tag`` without one; a ':' in an
+    earlier path component belongs to DIR (the JAX tools' rule,
+    ``tools/accuracy_cost.py:102-104``)."""
+    if ":" in spec.rpartition("/")[2]:
+        save_dir, _, tag = spec.rpartition(":")
+        return save_dir, tag
+    return spec, default_tag
+
+
 def to_host(tree):
     """A copy of ``tree`` with every tensor copied to host memory."""
     if isinstance(tree, torch.Tensor):

@@ -340,6 +340,7 @@ class Trainer:
         num_steps: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
         eval_fn: Callable[[TrainState], float] | None = None,
+        step_hook: Callable[[], None] | None = None,
     ) -> list[dict]:
         """Train until ``state.step`` reaches ``num_steps`` (an absolute
         budget: a resumed state runs only the rest; default epochs *
@@ -384,6 +385,9 @@ class Trainer:
           step reached, then return.
 
         The budget and the signal are checked before a batch is pulled.
+
+        ``step_hook``, if given, is called after each step's launch (the
+        ``train`` command's profiler schedule, ``utils/profiling.py::trace_steps``).
 
         Returns one record per step: step, loss (filled in when the check
         reads it), lr, whether the params moved, ``wait_seconds`` (host
@@ -465,6 +469,8 @@ class Trainer:
                 }
                 records.append(record)
                 unread.append((record, slot))
+                if step_hook is not None:
+                    step_hook()
                 check(step)  # the previous step's loss, one step late
                 if crossed(log_every, step):
                     full_sync(self.device)

@@ -1,15 +1,20 @@
-"""The E-step calibration: the counterpart of
-``em_adapt_tpu/utils/profiling.py::measure_estep_us_per_image``.
+"""The E-step calibration and the training trace: the counterparts of
+``em_adapt_tpu/utils/profiling.py``'s ``measure_estep_us_per_image`` and
+``trace_context``.
 
-It times the deployed E-step (``ops/estep.py::estep_labels``, K1 on a
-CUDA card) once at train start at the run's score-map shape; the
-``train`` command stamps the result into every train record as
-``estep_us_per_image_calib``.
+:func:`measure_estep_us_per_image` times the deployed E-step
+(``ops/estep.py::estep_labels``, K1 on a CUDA card) once at train start
+at the run's score-map shape; the ``train`` command stamps the result into
+every train record as ``estep_us_per_image_calib``. :func:`trace_steps` is
+``train --profile-dir``: a torch.profiler trace of the first steps.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+import warnings
 
 import torch
 
@@ -47,3 +52,36 @@ def measure_estep_us_per_image(model_cfg: ModelConfig, estep_cfg: EStepConfig, b
             run()
         ms = (time.perf_counter() - t0) * 1e3 / iters
     return ms * 1e3 / batch_size
+
+
+#: Steps that ``train --profile-dir`` traces, from the first.
+TRACE_STEPS = 5
+
+
+@contextlib.contextmanager
+def trace_steps(logdir: str | None, device):
+    """A torch.profiler trace of the first :data:`TRACE_STEPS` training steps,
+    written to ``logdir`` as a Chrome trace (``*.pt.trace.json``,
+    TensorBoard's profile plugin and Perfetto read it) when they are done
+    or the region ends, whichever is first. Yields the hook that
+    ``Trainer.fit(step_hook=...)`` calls after each step, or None when
+    ``logdir`` is None (no profiler). Host activity is traced, and the
+    card's when ``device`` is a CUDA device. The JAX package traces the
+    whole ``fit``; a torch.profiler trace of a long run would not fit in
+    memory."""
+    if logdir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with warnings.catch_warnings():  # "won't be using warmup": step 0 is wanted in the trace
+        warnings.filterwarnings("ignore", message="Profiler won't be using warmup")
+        prof = profile(activities=activities,
+                       schedule=schedule(wait=0, warmup=0, active=TRACE_STEPS, repeat=1),
+                       on_trace_ready=tensorboard_trace_handler(logdir))
+    with prof:
+        yield prof.step

@@ -328,3 +328,30 @@ def test_unrecognized_arguments_still_fail():
         main(["info", "stray"])
     with pytest.raises(SystemExit, match="no image"):
         main(["predict", "model.fc6_channels=8", "--out", "o", "--device", "cpu"])
+
+
+def test_eval_checkpoint_evaluates_that_checkpoint(tmp_path, capsys):
+    """``eval --checkpoint DIR`` scores DIR's latest "norm" (not the default
+    ``checkpoint.save_dir``, which is empty here), ``DIR:TAG`` that tag's,
+    as ``em_adapt_tpu/cli.py``'s ``eval --checkpoint``; the mIoU is that
+    of the checkpoint's parameters, not of a fresh init."""
+    small = [*SMALL, "model.num_classes=4", "eval.batch_size=2"]
+    ck, empty = tmp_path / "ck", tmp_path / "empty"
+    assert main(["train", "--synthetic", "4", "--steps", "2", "--device", "cpu", *small,
+                 "train.batch_size=2", "optim.accum_steps=1", "data.num_workers=1",
+                 "train.calibrate_estep=false", "optim.base_lr=0.5",
+                 f"checkpoint.save_dir={ck}"]) == 0
+    capsys.readouterr()
+    common = ["eval", "--synthetic", "3", "--device", "cpu", *small, f"checkpoint.save_dir={empty}"]
+    assert main([*common]) == 0
+    fresh = capsys.readouterr().out
+    assert "fresh init" in fresh
+    assert main(["eval", "--checkpoint", str(ck), *common[1:]]) == 0
+    trained = capsys.readouterr().out
+    assert "evaluating checkpoint step 2" in trained
+    assert main(["eval", "--checkpoint", f"{ck}:norm", *common[1:]]) == 0
+    assert capsys.readouterr().out == trained
+    assert main(["eval", "--checkpoint", f"{ck}:best", *common[1:]]) == 0
+    assert "fresh init" in capsys.readouterr().out  # no "best" was saved
+    miou = [ln for ln in trained.splitlines() if ln.startswith("mIoU")]
+    assert miou and miou != [ln for ln in fresh.splitlines() if ln.startswith("mIoU")]

@@ -160,3 +160,105 @@ def test_cli_synthetic_learnable_without_synthetic_exits_2(tmp_path, capsys):
                  f"checkpoint.save_dir={tmp_path}"]) == 2
     assert "--synthetic-learnable needs --synthetic" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
+
+
+_PRESETS = {
+    "reference": [],
+    "gpu-perf": ["model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+                 "data.wire_dtype=uint8", "data.train_label_size=(41,41)"],
+    "gpu-perf-fold": ["model.compute_dtype=bfloat16", "model.block1_impl=pallas",
+                      "data.wire_dtype=uint8", "data.train_label_size=(41,41)",
+                      "train.batch_size=30", "optim.accum_steps=1"],
+    "gpu-highres": ["model.compute_dtype=bfloat16", "data.wire_dtype=uint8",
+                    "model.input_size=(513,513)", "model.remat=true"],
+}
+
+
+def _train_args(preset, *overrides, strong_fraction=0.0):
+    import argparse
+
+    return argparse.Namespace(preset=preset, overrides=list(overrides), strong_list=None,
+                              strong_fraction=strong_fraction)
+
+
+@pytest.mark.parametrize("preset", sorted(_PRESETS))
+def test_preset_resolves_to_its_overrides_and_user_overrides_win(preset):
+    """Each preset's config is the intended overrides on the defaults, and
+    a dotted override of the user's wins over the preset's value."""
+    from em_adapt_torch.__main__ import train_config
+    from em_adapt_torch.config import ExperimentConfig, apply_overrides
+
+    want = apply_overrides(ExperimentConfig(), _PRESETS[preset])
+    assert train_config(_train_args(preset)) == want
+    got = train_config(_train_args(preset, "model.compute_dtype=float32", "train.batch_size=4"))
+    assert (got.model.compute_dtype, got.train.batch_size) == ("float32", 4)
+    assert got.data == want.data and got.optim == want.optim
+
+
+def test_presets_are_the_jax_presets_levers_on_the_card():
+    """The port's presets carry the JAX presets' overrides (cli.py:249-286)
+    but the TPU-only ones (fused dispatch, the hardware RNG, the spatial
+    mesh axis of multi-GPU's item 11), with block 1 on K2/K3 in gpu-perf."""
+    from em_adapt_torch.__main__ import train_presets
+    from em_adapt_tpu.cli import train_presets as jax_presets
+
+    tpu_only = ("train.macro_steps", "train.rng_impl", "mesh.axes")
+    ours, theirs = train_presets(), jax_presets()
+    for gpu, tpu in (("reference", "reference"), ("gpu-perf", "tpu-perf"),
+                     ("gpu-perf-fold", "tpu-perf-fold"), ("gpu-highres", "tpu-highres")):
+        kept = [o.replace(" ", "") for o in theirs[tpu] if not o.startswith(tpu_only)]
+        assert kept == [o for o in ours[gpu] if o != "model.block1_impl=pallas"], gpu
+    assert "model.block1_impl=pallas" in ours["gpu-perf"]
+
+
+@pytest.mark.parametrize("strong_fraction,warns", [(0.5, True), (0.0, False)])
+def test_fold_preset_warns_under_semi_supervision(capsys, strong_fraction, warns):
+    """gpu-perf-fold with semi-supervision warns as the JAX CLI does
+    (cli.py:347-353): batch 30 is not the mean of five batch-6 means there."""
+    from em_adapt_torch.__main__ import train_config
+
+    cfg = train_config(_train_args("gpu-perf-fold", strong_fraction=strong_fraction))
+    err = capsys.readouterr().err
+    assert cfg.semi_supervised is warns
+    assert ("WARNING: gpu-perf-fold with semi-supervised training" in err) is warns
+    train_config(_train_args("gpu-perf", strong_fraction=0.5))
+    assert "WARNING" not in capsys.readouterr().err
+
+
+def test_cli_preset_flag_reaches_the_trainer(tmp_path, monkeypatch):
+    """``train --preset gpu-perf`` trains under the preset (the user's
+    small-model overrides on top), the plain versions of K2 and K3
+    standing in on the CPU."""
+    from em_adapt_torch import __main__ as cli
+
+    made = []
+
+    class Recorded(Trainer):
+        def __init__(self, cfg, **kw):
+            super().__init__(cfg, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(cli, "Trainer", Recorded)
+    assert cli.main(["train", "--steps", "1", "--preset", "gpu-perf", *CLI,
+                     "data.train_label_size=(5,5)", "train.calibrate_estep=false",
+                     f"checkpoint.save_dir={tmp_path}"]) == 0
+    cfg = made[0].cfg
+    assert (cfg.model.compute_dtype, cfg.model.block1_impl, cfg.data.wire_dtype) == (
+        "bfloat16", "pallas", "uint8")
+    assert cfg.train.batch_size == 2
+
+
+def test_profile_dir_writes_a_trace_of_the_first_steps(tmp_path):
+    """``--profile-dir`` on a 2-step CPU run: one Chrome trace in the
+    directory, with a ProfilerStep span for each step taken and one for
+    the loop's tail after the last (the final loss check)."""
+    from em_adapt_torch.__main__ import main
+
+    trace_dir = tmp_path / "trace"
+    assert main(["train", "--steps", "2", "--profile-dir", str(trace_dir), *CLI,
+                 "train.calibrate_estep=false", f"checkpoint.save_dir={tmp_path / 'ck'}"]) == 0
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    steps = {e["name"] for e in events if str(e.get("name", "")).startswith("ProfilerStep#")}
+    assert steps == {"ProfilerStep#0", "ProfilerStep#1", "ProfilerStep#2"}

@@ -256,3 +256,34 @@ def test_train_runs_its_periodic_eval_by_the_voc_protocol(tmp_path, monkeypatch)
     assert calls == [2]
     evals = [r for r in map(json.loads, log.read_text().splitlines()) if "val_metric" in r]
     assert len(evals) == 1 and 0.0 <= evals[0]["val_metric"] <= 1.0
+
+
+def test_card_crf_in_chunks_equals_the_whole_batch(shared, monkeypatch):
+    """``voc_post_device`` refines a bucket batch in chunks of images when
+    their grids exceed ``CRF_GRID_BYTES``: a budget of one image's grid
+    (chunks of 1) gives the labels of the whole batch at once, bit for bit
+    (each image's grid cells are its own); the padding row is not refined."""
+    jmodel, params = shared
+    _, pc = _configs(crf_iterations=2, crf_impl="tpu", crf_bucket=(65, 65), crf_buckets=())
+    ev = _port(pc, params)
+    raws = [TinyVOC().load_raw(i)[0] for i in range(3)]
+    logits = ev.logits(np.stack([preprocess_eval(r, None, input_size=(33, 33))[0]
+                                 for r in raws] + [np.zeros((33, 33, 3), np.float32)]))
+    whole = ev.voc_post_device(logits, raws, (65, 65))
+    from em_adapt_torch.eval.crf_device import grid_cells
+
+    from em_adapt_torch.eval import crf_device
+
+    calls = []
+    refine = crf_device.crf_refine
+
+    def spy(probs, *a, **k):
+        calls.append(probs.shape[0])
+        return refine(probs, *a, **k)
+
+    monkeypatch.setattr(crf_device, "crf_refine", spy)
+    monkeypatch.setattr(ppredict, "CRF_GRID_BYTES", grid_cells(65, 65, pc.eval) * 5 * 4)
+    chunked = ev.voc_post_device(logits, raws, (65, 65))
+    assert calls == [1, 1, 1]
+    assert chunked.shape == whole.shape == (4, 65, 65)
+    np.testing.assert_array_equal(chunked, whole)

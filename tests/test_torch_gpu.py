@@ -920,3 +920,60 @@ def test_conv_s8_on_the_card_equals_the_cpu(cuda_device, rate, kh, cin, cout, b,
     got = conv_s8(x8.to(cuda_device), w8.to(cuda_device), rate)
     assert got.dtype == torch.int32 and got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,per_step", [("reference", (1, 0, 0)), ("gpu-perf", (1, 1, 1)),
+                                             ("gpu-perf-fold", (1, 1, 1))])
+def test_cli_preset_launches_its_kernels_on_the_card(cuda_device, tmp_path, preset, per_step,
+                                                     capsys):
+    """``train --preset`` through the command line on the card, at a narrow
+    head and 33x33 (batch 2, labels at 5x5): K1, K2 and K3 launch as the
+    preset says in each of 2 steps, and the run finishes."""
+    from em_adapt_torch.__main__ import main
+    from em_adapt_torch.ops import block1 as k23
+    from em_adapt_torch.ops import estep_kernel as k1
+
+    before = (k1.launches, k23.launches, k23.bwd_launches)
+    assert main(["train", "--synthetic", "4", "--steps", "2", "--preset", preset,
+                 "model.num_classes=4", "model.fc6_channels=8", "model.input_size=(33,33)",
+                 "train.batch_size=2", "data.train_label_size=(5,5)", "data.num_workers=1",
+                 "train.calibrate_estep=false", f"checkpoint.save_dir={tmp_path}"]) == 0
+    torch.cuda.synchronize()
+    after = (k1.launches, k23.launches, k23.bwd_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == tuple(2 * n for n in per_step)
+    assert "done at step 2" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_crf_device_at_the_129_bucket_on_the_card_matches_the_cpu(cuda_device):
+    """The card CRF in the accuracy-cost tool's one 129x129 bucket (the
+    kernel sxy 16, srgb 5, compat 10) against the same function on the
+    CPU, on two noise images, one padded into the bucket. Noise
+    probabilities at compat 10 amplify rounding: on the CPU a relative
+    perturbation of 1e-7 of the input moves the output by about 1.6e-4.
+    So the card's output must lie within 4 times that move of the CPU's
+    (measured here, on the CPU), and its labels equal the CPU's on at
+    least 99.9% of the valid pixels."""
+    from em_adapt_torch.eval.crf_device import crf_refine
+
+    g = np.random.default_rng(0)
+    probs = g.random((2, 129, 129, 4)).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    rgb = g.integers(0, 256, size=(2, 129, 129, 3), dtype=np.uint8)
+    mask = np.ones((2, 129, 129), bool)
+    mask[1, 100:] = False
+    kw = dict(bi_sxy=16.0, bi_srgb=5.0, bi_compat=10.0, g_sxy=1.0, g_compat=3.0, iterations=5)
+
+    def run(p, device):
+        return crf_refine(torch.from_numpy(p).to(device), torch.from_numpy(rgb).to(device),
+                          torch.from_numpy(mask).to(device), **kw)
+
+    got, want = run(probs, cuda_device), run(probs, "cpu")
+    noise = (1 + 1e-7 * g.standard_normal(probs.shape)).astype(np.float32)
+    move = float((run((probs * noise).astype(np.float32), "cpu") - want).abs().max())
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    valid = torch.from_numpy(mask)
+    assert float((got.cpu() - want).abs()[valid].max()) <= 4 * move
+    agree = (got.cpu().argmax(-1) == want.argmax(-1))[valid].float().mean()
+    assert float(agree) >= 0.999
