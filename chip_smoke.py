@@ -40,8 +40,10 @@ schedule rehearsal's three ``train`` processes (control, SIGTERM,
 ``--resume``) over a few hundred steps, bit-equal; "presets": each
 ``train --preset`` for 3 full-width steps (K1-K3 launches a step, wall,
 device time, peak memory); and "accuracy": the CRF tuning and the
-accuracy-cost tools at a cut size, every arm on the card; then checks
-what comes out. Every
+accuracy-cost tools at a cut size, every arm on the card; and "multi":
+``train --multihost`` at full width, a world of one over NCCL against no
+world (bit-equal), a world of two on the card over gloo against one
+process, and a SIGTERM to one of the two; then checks what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
 CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
 non-zero before printing any result. ``--quick``
@@ -3367,6 +3369,209 @@ def accuracy_phase(device, card: str) -> dict:
     return dict(arms=got, tuning=tuning["best_setting"])
 
 
+#: Phase "multi": the steps of the world-1 and world-2 runs, and of the
+#: preempted world-2 run with the step after which rank 1 alone gets SIGTERM.
+MULTI_STEPS = 3
+MULTI_PREEMPT_STEPS, MULTI_PREEMPT_AFTER = 12, 2
+#: The train command's overrides in "multi" (full width, the reference
+#: config's sizes): no E-step calibration, and an update every step, so
+#: that the gradients' all-reduce moves the parameters within the run.
+MULTI_OVERRIDES = ("train.calibrate_estep=false", "optim.accum_steps=1")
+MULTI_VAL_IMAGES = 12
+#: The bound of "multi" (b) on a leaf's distance between the world's and
+#: one process's parameters over the leaf's update: the two sum each
+#: weight gradient over a batch of 3 and of 6 in other orders, and an f32
+#: weight gradient summed over 263,169 positions lies up to 7.8e-4 of its
+#: leaf's scale from the f64 one (``tests/test_torch_highres.py``); an
+#: all-reduce that summed or dropped a rank's gradient would be 0.5 or
+#: more of the update apart. A deep leaf at the reference init moves by a
+#: few float32 ulps of its weights in 3 steps, where one rounding of each
+#: update apart is the whole difference: ``MULTI_PARAMS_ULPS`` ulps of the
+#: leaf's largest weight are allowed beside the ratio (3 updates, each
+#: rounded to half an ulp, in each run).
+MULTI_PARAMS_RATIO = 1e-2
+MULTI_PARAMS_ULPS = 4
+
+
+def trace_device_ms(trace_dir: str, steps: int) -> dict[str, float]:
+    """{name: device ms a step} of the kernels, copies and sets in the
+    Chrome trace that ``train --profile-dir`` wrote, summed over the trace."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict[str, float] = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
+    return out
+
+
+def saved_params(work: str, step: int) -> dict:
+    """The parameters of the "norm" checkpoint at ``step`` under ``work``."""
+    import torch
+
+    path = os.path.join(work, "saver", "norm", str(step), "state.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
+
+def multi_phase(device, card: str) -> dict:
+    """Phase "multi": data-parallel training through ``python -m
+    em_adapt_torch train --multihost`` (``tools/multihost_dryrun.py::launch``)
+    at full width (65,140,565 parameters, 321x321, 21 classes) on the card:
+
+    (a) a world of one process over NCCL, ``--preset gpu-perf`` (bf16, K1-K3,
+        batch 6), ``MULTI_STEPS`` steps, ``--deterministic``, beside the
+        same command without ``--multihost``: the losses and the saved
+        parameters bit-equal, K1, K2 and K3 once a step in both; each
+        run's median log-window wall a step and, from its
+        ``--profile-dir`` trace, its device time a step, the NCCL events'
+        and the kernels that the world adds;
+    (b) a world of two processes on the one card over gloo (NCCL refuses
+        two ranks on one card), f32 ``reference``, global batch 6 (3 a
+        process), ``MULTI_STEPS`` steps, the process-sharded eval on
+        ``MULTI_VAL_IMAGES`` val images at the last step, beside one
+        process: losses within rel 1e-5 at every step, val mIoU within
+        1e-6, "norm" and "best" written once, K1 once a step on rank 0,
+        and each saved leaf within ``MULTI_PARAMS_RATIO`` of its update
+        from the init and ``MULTI_PARAMS_ULPS`` float32 ulps;
+    (c) the same world of two for ``MULTI_PREEMPT_STEPS`` steps, SIGTERM to
+        rank 1 alone after step ``MULTI_PREEMPT_AFTER``: both processes
+        stop at one step, "norm" is saved once there and both exit 0.
+    Every process's failure fails the phase (``launch`` raises)."""
+    import shutil
+    import tempfile
+
+    from em_adapt_torch.tools import multihost_dryrun as md
+
+    work = tempfile.mkdtemp(prefix="multi-", dir=os.path.join(ROOT, "build"))
+    dev = f"cuda:{device.index or 0}"
+    common = dict(model=MULTI_OVERRIDES, device=dev, threads=None)
+    out = {}
+    try:
+        # (a) a world of one over NCCL against no world.
+        runs = {}
+        for name, multihost in (("world1", True), ("alone", False)):
+            d = os.path.join(work, f"a-{name}")
+            t0 = time.perf_counter()
+            path = md.launch(1, MULTI_STEPS, d, multihost=multihost, synthetic=24,
+                             extra_flags=["--preset", "gpu-perf", "--deterministic",
+                                          "--profile-dir", os.path.join(d, "trace")], **common)
+            records = [r for r in md.read_records(path) if "loss" in r]
+            by_name = trace_device_ms(os.path.join(d, "trace"), MULTI_STEPS)
+            runs[name] = dict(
+                losses=[r["loss"] for r in records],
+                launches=[(r["estep_launches"], r["block1_fwd_launches"],
+                           r["block1_bwd_launches"]) for r in records],
+                step_ms=statistics.median(r["window_seconds"] for r in records[1:]) * 1e3,
+                device_ms=sum(by_name.values()),
+                nccl_ms=sum(v for k, v in by_name.items() if "nccl" in k.lower()),
+                by_name=by_name, seconds=time.perf_counter() - t0)
+            log(f"multi (a) {name}: losses {runs[name]['losses']}, K1/K2/K3 launches a step "
+                f"{runs[name]['launches']}, wall {runs[name]['step_ms']:.2f} ms a step (median "
+                f"log window of steps 2..{MULTI_STEPS}, profiler on), device "
+                f"{runs[name]['device_ms']:.3f} ms a step, of it NCCL "
+                f"{runs[name]['nccl_ms']:.4f} ms; {runs[name]['seconds']:.1f} s; {card}")
+        a, b = runs["world1"], runs["alone"]
+        added = sorted(((a["by_name"].get(k, 0.0) - b["by_name"].get(k, 0.0), k)
+                        for k in set(a["by_name"]) | set(b["by_name"])), reverse=True)
+        log(f"multi (a): device ms a step that the world of one adds, by name: "
+            f"{[(k[:60], round(v, 4)) for v, k in added[:6]]}; {card}")
+        if len(a["losses"]) != MULTI_STEPS or a["losses"] != b["losses"]:
+            raise AssertionError(f"multi (a): world-1 losses {a['losses']} != {b['losses']}")
+        for name, r in runs.items():
+            if r["launches"] != [(1, 1, 1)] * MULTI_STEPS:
+                raise AssertionError(f"multi (a): {name} launched K1/K2/K3 {r['launches']}")
+        from em_adapt_torch.train.state import bitwise_diff
+
+        differ = bitwise_diff(saved_params(os.path.join(work, "a-world1"), MULTI_STEPS),
+                              saved_params(os.path.join(work, "a-alone"), MULTI_STEPS))
+        if differ:
+            raise AssertionError(f"multi (a): the saved parameters differ at {differ[:5]}")
+        out["world1"], out["alone"] = a, b
+
+        # (b) a world of two on the one card over gloo against one process.
+        flags = ["--deterministic", "--synthetic-val", str(MULTI_VAL_IMAGES)]
+        gloo = ["--dist-backend", "gloo"]
+        ev = [f"train.eval_every_steps={MULTI_STEPS}"]
+        t0 = time.perf_counter()
+        one = md.launch(1, MULTI_STEPS, os.path.join(work, "b-one"), synthetic=24,
+                        extra_flags=flags, overrides_extra=ev, **common)
+        t1 = time.perf_counter()
+        two = md.launch(2, MULTI_STEPS, os.path.join(work, "b-two"), synthetic=24,
+                        extra_flags=flags + gloo, overrides_extra=ev, **common)
+        t2 = time.perf_counter()
+        want, got = md.loss_stream(one), md.loss_stream(two)
+        val_want, val_got = md.val_stream(one), md.val_stream(two)
+        rank0 = [(r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                 for r in md.read_records(two) if "loss" in r]
+        saved = {tag: sorted(os.listdir(os.path.join(work, "b-two", "saver", tag)))
+                 for tag in ("norm", "best")}
+        rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in want) if set(got) == set(
+            want) else None
+        log(f"multi (b): world 2 on one card (gloo), f32 reference, global batch 6: losses "
+            f"{got} against one process's {want} (max rel {rel}); val {val_got} against "
+            f"{val_want}; saved {saved}; {t1 - t0:.1f} s and {t2 - t1:.1f} s; rank 0's "
+            f"K1/K2/K3 launches a step {rank0}; {card}")
+        if rank0 != [(1, 0, 0)] * MULTI_STEPS:
+            raise AssertionError(f"multi (b): rank 0 launched K1/K2/K3 {rank0}")
+        if rel is None or len(want) != MULTI_STEPS or rel > 1e-5:
+            raise AssertionError(f"multi (b): losses {got} against {want}")
+        if not (set(val_got) == set(val_want) == {MULTI_STEPS}) or abs(
+                val_got[MULTI_STEPS] - val_want[MULTI_STEPS]) > 1e-6:
+            raise AssertionError(f"multi (b): val {val_got} against {val_want}")
+        if saved != {"norm": [str(MULTI_STEPS)], "best": [str(MULTI_STEPS)]}:
+            raise AssertionError(f"multi (b): saved {saved}")
+        import torch
+
+        from em_adapt_torch.config import ExperimentConfig
+        from em_adapt_torch.models.deeplab import build_model
+
+        init = build_model(ExperimentConfig().model, 0, torch.device("cpu")).state_dict()
+        p1 = saved_params(os.path.join(work, "b-one"), MULTI_STEPS)
+        p2 = saved_params(os.path.join(work, "b-two"), MULTI_STEPS)
+        # Per leaf: how far the world's parameters are from one process's,
+        # against MULTI_PARAMS_RATIO of how far one process's moved from the
+        # init plus MULTI_PARAMS_ULPS of the leaf's float32 resolution.
+        leaves = {}
+        for k in init:
+            moved_k = float((p1[k] - init[k]).abs().max())
+            ulp = float(np.spacing(np.float32(p1[k].abs().max())))
+            leaves[k] = dict(apart=float((p2[k] - p1[k]).abs().max()), moved=moved_k, ulp=ulp,
+                             bound=MULTI_PARAMS_RATIO * moved_k + MULTI_PARAMS_ULPS * ulp)
+        worst = sorted(leaves, key=lambda k: leaves[k]["apart"] / leaves[k]["bound"])[-3:]
+        moved = max(v["moved"] for v in leaves.values())
+        apart = max(v["apart"] for v in leaves.values())
+        resolved = max(v["moved"] / v["ulp"] for v in leaves.values())
+        log(f"multi (b): parameters after {MULTI_STEPS} updates: world 2 against one process "
+            f"max abs {apart:.3e}, the update from the init max abs {moved:.3e} (up to "
+            f"{resolved:.0f} float32 ulps of its leaf); the leaves nearest their bound "
+            f"{[(k, {n: f'{v:.3e}' for n, v in leaves[k].items()}) for k in worst]}; {card}")
+        over = [k for k, v in leaves.items() if not v["apart"] <= v["bound"]]
+        if over or resolved < 1e3:
+            raise AssertionError(f"multi (b): leaves past their bound {over}, or no leaf "
+                                 f"moved 1e3 ulps ({resolved})")
+        out["world2"] = dict(losses=got, one=want, max_rel=rel, val=val_got, val_one=val_want,
+                             params_apart=apart, params_moved=moved, launches=rank0)
+
+        # (c) SIGTERM to rank 1 alone.
+        d = os.path.join(work, "c")
+        t0 = time.perf_counter()
+        md.launch(2, MULTI_PREEMPT_STEPS, d, synthetic=24, extra_flags=flags[:1] + gloo,
+                  preempt_after_step=MULTI_PREEMPT_AFTER, preempt_ranks=(1,), **common)
+        stopped = md.norm_steps(d)
+        done = [ln for ln in open(os.path.join(d, "proc0.log")) if ln.startswith("done at")]
+        log(f"multi (c): SIGTERM to rank 1 after step {MULTI_PREEMPT_AFTER} of "
+            f"{MULTI_PREEMPT_STEPS}: 'norm' saved at {stopped}, rank 0 {done}, both exited 0 "
+            f"in {time.perf_counter() - t0:.1f} s; {card}")
+        if (len(stopped) != 1 or not MULTI_PREEMPT_AFTER <= stopped[0] < MULTI_PREEMPT_STEPS
+                or done != [f"done at step {stopped[0]}\n"]):
+            raise AssertionError(f"multi (c): saved {stopped}, {done}")
+        out["preempt_step"] = stopped[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def phase(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged after it."""
     t0 = time.perf_counter()
@@ -3460,6 +3665,7 @@ def main(argv=None) -> int:
     phase("schedule", schedule_phase, device, card)
     phase("presets", presets_phase, device, card)
     phase("accuracy", accuracy_phase, device, card)
+    phase("multi", multi_phase, device, card)
     kernels = [{
         "name": "estep",
         "route": "cuda",

@@ -6,7 +6,9 @@ convert|train|eval|predict|export|import-tf|info ...`` (installed as
     python -m em_adapt_torch train [--synthetic N [--synthetic-learnable]] [--steps N]
         [--preset reference|gpu-perf|gpu-perf-fold|gpu-highres] [--profile-dir DIR]
         [--resume | --warm-start DIR[:STEP]] [--log-jsonl PATH] [--deterministic]
-        [--strong-list PATH | --strong-fraction F] [--synthetic-val N] [key=value ...]
+        [--strong-list PATH | --strong-fraction F] [--synthetic-val N]
+        [--multihost [--coordinator HOST:PORT --num-processes N --process-id I]
+         [--dist-backend auto|gloo] [--dist-timeout S]] [key=value ...]
     python -m em_adapt_torch eval [--checkpoint DIR[:TAG]] [--synthetic N] [--fixed-size]
         [--crf] [--int8] [key=value ...]
     python -m em_adapt_torch predict IMG... --out DIR [--checkpoint DIR[:TAG]] [--crf]
@@ -45,7 +47,13 @@ protocol copy their batches there through ``DevicePrefetcher`` unless
 ``data.prefetch=0``. ``train --deterministic`` makes cuDNN choose
 deterministic algorithms before the model is built
 (``device.py::set_deterministic``), so that runs in separate processes
-sum alike.
+sum alike. ``train --multihost`` trains as one process of several, one a
+card (``parallel/mesh.py``): the process group is joined from
+``--coordinator HOST:PORT --num-processes N --process-id I`` (or from
+torchrun's environment), ``train.batch_size`` is the global batch, each
+process takes its rows of it, and the periodic eval scores each process's
+block of the val set and sums the confusion matrices; rank 0 prints, logs
+and writes the checkpoints (``em_adapt_tpu/cli.py:99-110, 308-320``).
 
 The serving commands (``em_adapt_tpu/cli.py:639-919``): ``predict``
 writes a VOC-palette PNG mask per image at the image's own size (the
@@ -80,13 +88,15 @@ import sys
 
 from em_adapt_torch.config import ExperimentConfig, apply_overrides, check_supported, flatten
 from em_adapt_torch.data.pipeline import (
-    DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation, batch_iterator,
+    DatasetShard, DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation,
+    batch_iterator,
 )
 from em_adapt_torch.data.voc import VOC_CLASS_NAMES, convert_dataset
 from em_adapt_torch.device import card_info, resolve_device, set_deterministic
 from em_adapt_torch.eval.miou import miou_from_confusion
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.models.deeplab import build_model
+from em_adapt_torch.parallel.mesh import DEFAULT_TIMEOUT, World, init_world
 from em_adapt_torch.train.checkpoint import CheckpointManager, split_checkpoint
 from em_adapt_torch.train.trainer import Trainer
 from em_adapt_torch.utils.logging import MetricLogger
@@ -375,7 +385,7 @@ def parse_warm_start(spec: str) -> tuple[str, int | None]:
     return spec, None
 
 
-def make_eval_fn(cfg: ExperimentConfig, args, device):
+def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None):
     """The periodic eval of ``train``: the mIoU of the training model on
     the split "val" (or ``--synthetic-val`` synthetic images, default a
     quarter of ``--synthetic``, at least 2; with ``--synthetic-learnable``
@@ -383,7 +393,13 @@ def make_eval_fn(cfg: ExperimentConfig, args, device):
     offset keeps it apart from the training images), at the fixed
     resolution (``Evaluator.confusion_fixed``) or, with ``train.eval_protocol=voc``,
     by the VOC protocol (``Evaluator.confusion_voc``), so that "best"
-    follows the headline number's protocol."""
+    follows the headline number's protocol.
+
+    In a ``world`` each rank scores its ``DatasetShard`` of the val set
+    and the integer [C, C] matrices are summed over the world by one
+    all-reduce that every rank enters (``em_adapt_tpu/cli.py:413-500``):
+    the sum is the whole set's matrix bit for bit, the same on every rank,
+    and so is "best"."""
     if args.synthetic:
         n_val = args.synthetic_val if args.synthetic_val is not None else max(args.synthetic // 4, 2)
         if args.synthetic_learnable:
@@ -393,15 +409,20 @@ def make_eval_fn(cfg: ExperimentConfig, args, device):
             val = SyntheticVOC(n_val, cfg.model.num_classes, seed=cfg.train.seed + 1)
     else:
         val = VOCSegmentation(cfg.data, "val")
+    if world is not None:
+        val = DatasetShard(val, world.rank, world.size)
 
     def eval_fn(state) -> float:
         if cfg.train.eval_protocol == "voc":
-            return miou_from_confusion(Evaluator(cfg, state.model).confusion_voc(val))[0]
-        batches = batch_iterator(val, cfg.data, batch_size=cfg.eval.batch_size, seed=0,
-                                 epochs=1, train=False)
-        with (DevicePrefetcher(batches, device, depth=cfg.data.prefetch)
-              if cfg.data.prefetch > 0 else contextlib.nullcontext(batches)) as batches:
-            confusion = Evaluator(cfg, state.model).confusion_fixed(batches)
+            confusion = Evaluator(cfg, state.model).confusion_voc(val)
+        else:
+            batches = batch_iterator(val, cfg.data, batch_size=cfg.eval.batch_size, seed=0,
+                                     epochs=1, train=False)
+            with (DevicePrefetcher(batches, device, depth=cfg.data.prefetch)
+                  if cfg.data.prefetch > 0 else contextlib.nullcontext(batches)) as batches:
+                confusion = Evaluator(cfg, state.model).confusion_fixed(batches)
+        if world is not None:
+            confusion = world.sum_host(confusion)
         return miou_from_confusion(confusion)[0]
 
     return eval_fn
@@ -425,7 +446,8 @@ def train_presets() -> dict[str, tuple[str, ...]]:
       masked cross-entropy normalizes per batch, and ``train`` warns);
     * "gpu-highres": 513x513, bf16, per-block remat, the uint8 wire (the
       65x65 score map: K1 over a cluster of CTAs an image). The JAX
-      preset's spatial mesh axis comes with multi-GPU (ROADMAP item 11).
+      preset's spatial mesh axis comes with spatial partitioning (ROADMAP
+      item 11c).
 
     The JAX presets' ``train.macro_steps`` and ``train.rng_impl`` are left
     out: the port accepts them and does not use them (``config.py``)."""
@@ -471,7 +493,29 @@ def cmd_train(args) -> int:
     if args.synthetic_learnable and not args.synthetic:
         print("error: --synthetic-learnable needs --synthetic N", file=sys.stderr)
         return 2
+    if not args.multihost and (args.coordinator or args.num_processes is not None
+                               or args.process_id is not None):
+        print("error: --coordinator, --num-processes and --process-id need --multihost",
+              file=sys.stderr)
+        return 2
     cfg = train_config(args)
+    world = None
+    if args.multihost:
+        world = init_world(args.device, coordinator=args.coordinator,
+                           num_processes=args.num_processes, process_id=args.process_id,
+                           backend=args.dist_backend, timeout=args.dist_timeout)
+    try:
+        return _train(args, cfg, world)
+    finally:
+        if world is not None:
+            world.close()
+
+
+def _train(args, cfg: ExperimentConfig, world: World | None) -> int:
+    """``train`` once the process group, if any, is joined: rank 0 prints,
+    logs and writes; the other ranks stay quiet."""
+    main_rank = world is None or world.is_main
+    say = print if main_rank else (lambda *a, **k: None)
     if args.deterministic:
         set_deterministic()
     if args.synthetic_learnable:
@@ -485,44 +529,58 @@ def cmd_train(args) -> int:
         data = VOCSegmentation(cfg.data, "train", strong_list=args.strong_list)
     # The LR schedule counts epochs of len(data) // batch microbatch steps.
     trainer = Trainer(cfg, device=args.device,
-                      steps_per_epoch=max(len(data) // cfg.train.batch_size, 1))
+                      steps_per_epoch=max(len(data) // cfg.train.batch_size, 1), world=world)
+    if world is not None:
+        say(f"world: {world.size} processes, rank 0 on {world.device}, global batch "
+            f"{cfg.train.batch_size} ({cfg.train.batch_size // world.size} a process)")
     state = trainer.init_state()
     if args.warm_start:
         wdir, wstep = parse_warm_start(args.warm_start)
         trainer.warm_start(state, wdir, args.warm_start_tag, wstep)
-        print(f"warm start: params from {wdir} (tag={args.warm_start_tag}, step="
-              f"{wstep if wstep is not None else 'latest'}); optimizer/step/LR fresh")
+        say(f"warm start: params from {wdir} (tag={args.warm_start_tag}, step="
+            f"{wstep if wstep is not None else 'latest'}); optimizer/step/LR fresh")
     latest = trainer.checkpointer.latest_step("norm") if args.resume else None
+    if args.resume and world is not None:
+        # Rank 0's view decides, so that every rank restores the same step.
+        latest = int(world.broadcast(-1 if latest is None else latest))
+        latest = None if latest < 0 else latest
     if args.resume and latest is None:
-        print("--resume: no checkpoint found, starting fresh")
+        say("--resume: no checkpoint found, starting fresh")
     elif latest is not None:
         state = trainer.restore_state("norm", latest)
-        print(f"resumed from step {latest}")
-    eval_fn = make_eval_fn(cfg, args, trainer.device) if cfg.train.eval_every_steps else None
-    logger = MetricLogger(args.log_jsonl)
+        say(f"resumed from step {latest}")
+    eval_fn = (make_eval_fn(cfg, args, trainer.device, world)
+               if cfg.train.eval_every_steps else None)
+    logger = MetricLogger(args.log_jsonl) if main_rank else None
     log_fn = logger
     if cfg.train.calibrate_estep:
-        estep_us = round(measure_estep_us_per_image(cfg.model, cfg.estep, cfg.train.batch_size,
+        local_batch = cfg.train.batch_size // (world.size if world is not None else 1)
+        estep_us = round(measure_estep_us_per_image(cfg.model, cfg.estep, local_batch,
                                                     trainer.device), 1)
-        print(f"estep calibration: {estep_us} us/image (impl={cfg.estep.impl}, "
-              f"batch={cfg.train.batch_size})")
-
-        def log_fn(m, _v=estep_us):
-            logger({**m, "estep_us_per_image_calib": _v} if "loss" in m else m)
+        say(f"estep calibration: {estep_us} us/image (impl={cfg.estep.impl}, "
+            f"batch={local_batch})")
+        if logger is not None:
+            def log_fn(m, _v=estep_us):
+                logger({**m, "estep_us_per_image_calib": _v} if "loss" in m else m)
 
     # One batch a microbatch step: the restored step is the stream position.
     batches = batch_iterator(data, cfg.data, batch_size=cfg.train.batch_size, seed=cfg.train.seed,
-                             start_step=state.step)
+                             start_step=state.step,
+                             process_shard=None if world is None else (world.rank, world.size))
     try:
         with trace_steps(args.profile_dir, trainer.device) as step_hook:
             trainer.fit(state, batches, num_steps=args.steps, log_fn=log_fn, eval_fn=eval_fn,
                         step_hook=step_hook)
     finally:
         batches.close()  # fit has closed its prefetcher, so no thread is inside the generator
-        logger.close()
-    trainer.checkpointer.save(state, "norm")
+        if logger is not None:
+            logger.close()
+    if trainer.checkpointer.last_saved.get("norm") != state.step:  # not saved at a SIGTERM
+        trainer.checkpointer.save(state, "norm")
     trainer.checkpointer.close()
-    print(f"done at step {state.step}")
+    if world is not None:
+        world.check_same(state.step, "the step training ended at")
+    say(f"done at step {state.step}")
     return 0
 
 
@@ -568,6 +626,22 @@ def main(argv: list[str] | None = None) -> int:
     train.add_argument("--deterministic", action="store_true",
                        help="cuDNN's deterministic algorithms, no autotuning (before the model "
                             "is built): runs in separate processes then sum alike")
+    train.add_argument("--multihost", action="store_true",
+                       help="train as one process of several, one a card (torch.distributed; "
+                            "without --coordinator, torchrun's environment)")
+    train.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                       help="with --multihost: rank 0's address for the rendezvous (or a "
+                            "file:// path on a filesystem that every process sees)")
+    train.add_argument("--num-processes", type=int, default=None,
+                       help="with --coordinator: the number of processes")
+    train.add_argument("--process-id", type=int, default=None,
+                       help="with --coordinator: this process's rank")
+    train.add_argument("--dist-backend", choices=("auto", "gloo"), default="auto",
+                       help="with --multihost: 'auto' (NCCL between cards, gloo on the CPU) or "
+                            "'gloo' (also for CUDA tensors: several processes on one card)")
+    train.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT, metavar="S",
+                       help="with --multihost: seconds the rendezvous and each collective may "
+                            "wait for the other processes before the run fails")
     train.add_argument("overrides", nargs="*", help="dotted config overrides, key=value")
     ev = sub.add_parser("eval", help="mIoU of the latest checkpoint on the VOC split 'val'")
     ev.add_argument("--checkpoint", default=None, metavar="DIR[:TAG]",

@@ -117,6 +117,21 @@ class OptimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The layout of the devices (``em_adapt_tpu/config.py:176-185``):
+    (axis name, size) pairs, -1 taking all the devices that the fixed axes
+    leave (``parallel/mesh.py::resolve_axis_sizes``). The port runs one
+    process per card, so the data axis is the number of processes
+    (``train --multihost``). A ``space`` axis above 1 (spatial
+    partitioning) and a ``model`` axis above 1 (tensor parallelism of
+    fc6/fc7) are not ported (ROADMAP.md Queue 1 items 11c and 11b)."""
+
+    axes: tuple[tuple[str, int], ...] = (("data", -1), ("space", 1))
+    data_axis: str = "data"
+    space_axis: str = "space"
+
+
+@dataclasses.dataclass(frozen=True)
 class CheckpointConfig:
     """Full-state checkpoints (``em_adapt_tpu/config.py:189-202``): "norm"
     every ``save_every_steps`` microbatch steps (reference deeplab.py:277-278;
@@ -221,6 +236,7 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     checkpoint: CheckpointConfig = dataclasses.field(default_factory=CheckpointConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     #: Images flagged ``is_strong`` in a batch train on their true masks
     #: (void pixels masked out) instead of the E-step's labels.
     semi_supervised: bool = False
@@ -258,6 +274,7 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         )
     if cfg.eval.crf_impl not in ("host", "tpu"):  # a typo would select the host CRF
         raise ValueError(f"eval.crf_impl must be 'host' or 'tpu', got {cfg.eval.crf_impl!r}")
+    check_mesh(cfg.mesh)
     if not train:
         return
     if cfg.estep.method not in ("adaptive", "fixed"):
@@ -274,6 +291,25 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
         raise ValueError(
             f"train.eval_protocol={cfg.train.eval_protocol!r}: expected 'fixed' or 'voc'"
         )
+
+
+def check_mesh(mesh: MeshConfig) -> None:
+    """Raise for a mesh axis the port does not run: a space axis other
+    than 1 (ROADMAP.md Queue 1 item 11c), a ``model`` axis other than 1
+    (item 11b), an axis of another name, or a size below -1 or of 0."""
+    for name, size in mesh.axes:
+        if size == 0 or size < -1:
+            raise ValueError(f"mesh.axes: axis {name!r} has size {size}; expected -1 or >= 1")
+        if name == mesh.space_axis and size != 1:
+            raise ValueError(
+                f"mesh.axes: a {name!r} axis of {size} (spatial partitioning) is not ported "
+                "(ROADMAP.md Queue 1 item 11c); set it to 1")
+        if name == "model" and size != 1:
+            raise ValueError(
+                f"mesh.axes: a 'model' axis of {size} (tensor parallelism of fc6/fc7) is not "
+                "ported (ROADMAP.md Queue 1 item 11b); set it to 1")
+        if name not in (mesh.data_axis, mesh.space_axis, "model"):
+            raise ValueError(f"mesh.axes: unknown axis {name!r}")
 
 
 def _coerce_override(raw: str, tp, key: str):

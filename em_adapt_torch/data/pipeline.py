@@ -2,14 +2,14 @@
 learnable rehearsal task, the seeded batch iterator and the device
 prefetcher.
 
-``VOCSegmentation``, ``SyntheticVOC``, ``LearnableSyntheticVOC`` and the
-single-process path of ``batch_iterator`` are copies of
-``em_adapt_tpu/data/pipeline.py``'s (train batches, and eval batches with
-a padded tail): the same files or seed give bit-identical batches in both
-packages. ``DevicePrefetcher`` is the counterpart of the JAX package's: a
-thread copies the next batches to the card through a ring of pinned host
-buffers on a copy stream of its own while the current step runs. Process
-sharding comes with ROADMAP.md Queue 1 item 11.
+``VOCSegmentation``, ``SyntheticVOC``, ``LearnableSyntheticVOC``,
+``DatasetShard`` and ``batch_iterator`` (with ``process_shard``) are copies
+of ``em_adapt_tpu/data/pipeline.py``'s (train batches, and eval batches
+with a padded tail): the same files or seed give bit-identical batches in
+both packages. ``DevicePrefetcher`` is the counterpart of the JAX
+package's: a thread copies the next batches to its process's card through
+a ring of pinned host buffers on a copy stream of its own while the
+current step runs.
 """
 
 from __future__ import annotations
@@ -146,6 +146,30 @@ class LearnableSyntheticVOC:
         return np.clip(img, 0, 255).astype(np.uint8), label
 
 
+class DatasetShard:
+    """Process ``shard`` of ``num_shards``'s contiguous block of
+    ``dataset`` (``np.array_split``'s blocks: the first ``len % num_shards``
+    one image longer), for the process-sharded evaluation: integer
+    confusion matrices of the blocks sum to the whole set's
+    (``em_adapt_tpu/data/pipeline.py::DatasetShard``)."""
+
+    def __init__(self, dataset, shard: int, num_shards: int):
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} not in [0, {num_shards})")
+        self._dataset = dataset
+        self._idxs = np.array_split(np.arange(len(dataset)), num_shards)[shard]
+        self.ids = [dataset.ids[int(i)] for i in self._idxs]
+        strong = getattr(dataset, "is_strong", None)
+        self.is_strong = (np.asarray(strong)[self._idxs] if strong is not None
+                          else np.zeros(len(self._idxs), bool))
+
+    def __len__(self) -> int:
+        return len(self._idxs)
+
+    def load_raw(self, i: int):
+        return self._dataset.load_raw(int(self._idxs[i]))
+
+
 def batch_iterator(
     dataset,
     cfg: DataConfig,
@@ -156,6 +180,7 @@ def batch_iterator(
     train: bool = True,
     num_workers: int | None = None,
     start_step: int = 0,
+    process_shard: tuple[int, int] | None = None,
 ) -> Iterator[dict]:
     """Yield batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list},
     and "is_strong" [B] bool whenever the dataset flags any image strong
@@ -171,9 +196,18 @@ def batch_iterator(
     ids ``"__pad__"``, so no image leaves the metric and the batch shape
     stays fixed. ``start_step`` skips the first batches without decoding
     them.
+
+    ``process_shard=(pid, n)``: ``batch_size`` is the global batch; every
+    process draws the same permutation and global batches and keeps rows
+    ``[pid·B/n, (pid+1)·B/n)`` of each (pad rows included), so the n
+    processes' batches together are the one-process run's.
     """
     n = len(dataset)
     num_workers = num_workers if num_workers is not None else cfg.num_workers
+    pid, nprocs = process_shard or (0, 1)
+    if batch_size % nprocs:
+        raise ValueError(f"global batch_size {batch_size} not divisible by {nprocs} processes")
+    local_bs = batch_size // nprocs
     if train and n < batch_size:
         raise ValueError(
             f"dataset has {n} images < batch_size {batch_size}: every training "
@@ -215,19 +249,26 @@ def batch_iterator(
             else:
                 perm = np.arange(n)
             for start in range(0, n, batch_size):
-                idxs = perm[start : start + batch_size]
-                if len(idxs) < batch_size and train:
+                gidxs = perm[start : start + batch_size]
+                if len(gidxs) < batch_size and train:
                     continue
                 if to_skip > 0:
                     to_skip -= 1
                     continue
-                results = list(pool.map(lambda i: load_one(epoch, int(i)), idxs))
-                ids = [dataset.ids[int(i)] for i in idxs]
-                flags = [bool(strong[int(i)]) for i in idxs] if include_strong else []
-                if len(idxs) < batch_size:
-                    # -1 rows of the JAX package: a zero image, an all-void label.
-                    pad = batch_size - len(idxs)
-                    img0, lab0 = results[0]
+                # -1 marks a pad row of the JAX package: a zero image, an all-void label.
+                gidxs = np.concatenate([gidxs, np.full(batch_size - len(gidxs), -1, gidxs.dtype)])
+                idxs = [int(i) for i in gidxs[pid * local_bs : (pid + 1) * local_bs] if i >= 0]
+                results = list(pool.map(lambda i: load_one(epoch, i), idxs))
+                ids = [dataset.ids[i] for i in idxs]
+                flags = [bool(strong[i]) for i in idxs] if include_strong else []
+                if len(idxs) < local_bs:
+                    pad = local_bs - len(idxs)
+                    if results:
+                        img0, lab0 = results[0]
+                    else:  # a block of pad rows only: the shapes from the config
+                        h, w = cfg.input_size
+                        dt = np.uint8 if cfg.wire_dtype == "uint8" else np.float32
+                        img0, lab0 = np.zeros((h, w, 3), dt), np.zeros((h, w, 1), dt)
                     results += [(np.zeros_like(img0), np.full_like(lab0, 255))] * pad
                     ids += ["__pad__"] * pad
                     flags += [False] * pad

@@ -168,12 +168,19 @@ def dropout(
     *,
     generator: torch.Generator | None = None,
     mask: torch.Tensor | None = None,
+    shard: tuple[int, int] = (0, 1),
 ) -> torch.Tensor:
     """TF1 ``tf.nn.dropout``: keep with probability ``keep_prob`` and scale
     kept values by 1/keep_prob. ``mask`` (bool, x's shape) injects the keep
-    pattern; otherwise it is drawn from ``generator``."""
+    pattern; otherwise it is drawn from ``generator``: with ``shard=(rank,
+    n)`` the mask of the whole world's batch (n times x's rows) is drawn
+    and rows ``[rank·B, (rank+1)·B)`` kept, so that n processes with one
+    seed draw what one process draws for their batches together."""
     if mask is None:
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        rank, n = shard
+        b = x.shape[0]
+        mask = torch.rand((b * n, *x.shape[1:]), generator=generator,
+                          device=x.device)[rank * b:(rank + 1) * b] < keep_prob
     return torch.where(mask, x / keep_prob, torch.zeros_like(x))
 
 
@@ -258,11 +265,14 @@ class DeepLabLargeFOV(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         masks: tuple[torch.Tensor, torch.Tensor] | None = None,
+        shard: tuple[int, int] = (0, 1),
     ) -> torch.Tensor:
         """x [B,H,W,3]: float is preprocessed (BGR, mean-subtracted); uint8
         is raw RGB and is normalized here, on x's device. In training,
         dropout masks come from ``masks`` (two bool NCHW tensors, after
-        relu6 and relu7) or are drawn from ``generator``.
+        relu6 and relu7) or are drawn from ``generator``, as the rows
+        ``shard`` (rank, world size) names of the world batch's masks
+        (:func:`dropout`).
         Returns f32 logits [B, ceil(H/8), ceil(W/8), C] (NHWC view)."""
         if train and masks is None and generator is None:
             raise ValueError("train=True needs a dropout generator or masks")
@@ -287,7 +297,8 @@ class DeepLabLargeFOV(nn.Module):
         for i, name in enumerate(("fc6", "fc7")):
             h = F.relu(self.layers[name](h, cdt), inplace=True)
             if train:
-                h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[i])
+                h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[i],
+                            shard=shard)
         return self.layers["fc8"](h, cdt).float().permute(0, 2, 3, 1)
 
     def predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

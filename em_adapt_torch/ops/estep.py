@@ -22,6 +22,12 @@ per present class, one elementwise add in plain PyTorch whatever the
 Class orders are explicit ``[num_iter, C-1]`` arrays. In training they are
 drawn from a ``torch.Generator``, which gives other orders than JAX's keys
 for the same seed; tests pass both packages the same array.
+
+The E-step's one link between images is the batch max that lifts absent
+classes before the channel min (reference estep.py:46-55). The JAX package
+takes it over the global, sharded batch; :func:`estep_labels` takes it
+over the world's batch (``parallel/mesh.py::global_max``: an all-reduce of
+the local max when several processes train together).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from em_adapt_torch.config import EStepConfig
 from em_adapt_torch.ops.estep_kernel import estep_kernel
 from em_adapt_torch.ops.estep_native import estep_native
+from em_adapt_torch.parallel.mesh import current_shard, global_max
 
 
 def derive_tags(label: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -44,12 +51,14 @@ def derive_tags(label: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (lab[..., None] == classes).any(2).any(1).to(torch.float32)
 
 
-def suppress_absent(scores: torch.Tensor, tags: torch.Tensor, margin: float) -> torch.Tensor:
+def suppress_absent(scores: torch.Tensor, tags: torch.Tensor, margin: float,
+                    gmax: torch.Tensor | None = None) -> torch.Tensor:
     """Clamp absent-class scores above the per-pixel present-class min,
     lifting absent channels by the global batch max first (reference
-    estep.py:46-55). scores [B,H,W,C], tags [B,C]."""
+    estep.py:46-55). scores [B,H,W,C], tags [B,C]; ``gmax`` overrides the
+    batch max."""
     present = tags[:, None, None, :] > 0
-    gmax = scores.amax()
+    gmax = scores.amax() if gmax is None else gmax.reshape(())
     lifted = scores + torch.where(present, torch.zeros_like(gmax), gmax)
     present_min = lifted.amin(3, keepdim=True)
     clamp = ~present & (scores > present_min)
@@ -96,15 +105,17 @@ def estep(
     num_iter: int = 5,
     suppress_others: bool = True,
     margin_others: float = 1e-5,
+    gmax: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sort reference. scores [B,H,W,C] f32, label [B,H,W], orders
-    [num_iter, C-1]. Returns the biased [B,H,W,C] score map."""
+    [num_iter, C-1]; ``gmax`` overrides the batch max. Returns the biased
+    [B,H,W,C] score map."""
     f = scores.to(torch.float32).clone()
     b, h, w, c = f.shape
     _check_orders(orders, num_iter, c)
     tags = derive_tags(label, c)
     if suppress_others:
-        f = suppress_absent(f, tags, margin_others)
+        f = suppress_absent(f, tags, margin_others, gmax)
     before = f.amax(3).mean((1, 2))
     k_bg, k_fg = int(h * w * bg_p), int(h * w * fg_p)
     for j in visit_schedule(orders).tolist():
@@ -124,6 +135,7 @@ def estep_fixed(
     suppress_others: bool = True,
     margin_others: float = 1e-5,
     bias_units: str = "logit",
+    gmax: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """EM-Fixed (arXiv:1502.02734 §3.3; ``em_adapt_tpu/ops/estep.py::
     estep_fixed``): ``bg_bias`` added to the background's scores and
@@ -131,15 +143,16 @@ def estep_fixed(
     class (clamped below the present-class min first, as in EM-Adapt,
     with ``suppress_others``). ``bias_units="spread"`` multiplies the
     biases by the image's STD of its present-class scores (moments masked
-    to the present channels). scores [B,H,W,C], label [B,H,W]; returns
-    the biased [B,H,W,C] f32 map."""
+    to the present channels). scores [B,H,W,C], label [B,H,W]; ``gmax``
+    overrides the batch max of the suppression. Returns the biased
+    [B,H,W,C] f32 map."""
     if bias_units not in ("logit", "spread"):
         raise ValueError(f"bias_units={bias_units!r}: expected 'logit' or 'spread'")
     f = scores.to(torch.float32)
     b, h, w, c = f.shape
     tags = derive_tags(label, c)
     if suppress_others:
-        f = suppress_absent(f, tags, margin_others)
+        f = suppress_absent(f, tags, margin_others, gmax)
     per_class = torch.full((c,), fg_bias, dtype=torch.float32, device=f.device)
     per_class[0] = bg_bias
     bias = (tags * per_class)[:, None, None, :]
@@ -220,14 +233,26 @@ def estep_labels(
     runs :func:`estep_fixed` for every ``cfg.impl`` (``orders`` unused);
     ``cfg.impl="native"`` copies the scores to the host, runs the C++
     library there and copies the labels back to the scores' device.
+
+    In a world of several processes the batch max is the world's
+    (``parallel/mesh.py::global_max``), for every method and impl but
+    "native", which raises there: the host library takes its own batch's
+    max, and the JAX package's native path has no sharded form either.
     """
     if cfg.method not in ("adaptive", "fixed"):
         raise ValueError(f"estep.method={cfg.method!r}: expected 'adaptive' or 'fixed'")
     if cfg.impl not in ("auto", "pallas", "jax", "native"):
         raise ValueError(
             f"estep.impl={cfg.impl!r}: expected 'auto', 'pallas', 'jax' or 'native'")
+    if cfg.impl == "native" and cfg.method == "adaptive" and current_shard()[1] > 1:
+        raise ValueError(
+            "estep.impl='native' cannot train in a world of several processes: the host "
+            "library takes the batch max over its own process's images, where the E-step "
+            "needs the world's (recorded in ROADMAP.md under item 11); use 'auto'")
     kw = dict(suppress_others=cfg.suppress_others, margin_others=cfg.margin_others)
     with torch.no_grad():
+        if cfg.impl != "native" or cfg.method == "fixed":
+            kw["gmax"] = global_max(scores)
         if cfg.method == "fixed":
             return estep_fixed(scores, label, bg_bias=cfg.fixed_bg_bias,
                                fg_bias=cfg.fixed_fg_bias, bias_units=cfg.fixed_bias_units,

@@ -14,7 +14,9 @@ midway leaves the earlier steps as they were and is never listed, and a
 second save of one step replaces the first whole (the newest write wins).
 With ``async_save`` the state is copied to host memory inside
 :meth:`CheckpointManager.save` and written on a thread; :meth:`wait` joins
-it and raises what it raised.
+it and raises what it raised. In a world of processes (``world``) rank 0
+copies and writes, and every rank waits on a barrier after each save; the
+ranks hold the same state, and each restores from the same file.
 """
 
 from __future__ import annotations
@@ -56,10 +58,13 @@ def to_host(tree):
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig):
+    def __init__(self, cfg: CheckpointConfig, world=None):
         if cfg.max_to_keep < 1:
             raise ValueError(f"checkpoint.max_to_keep must be >= 1, got {cfg.max_to_keep}")
         self.cfg = cfg
+        self.world = world  # parallel/mesh.py::World, or None on one process
+        #: The step of each tag's last :meth:`save` by this manager.
+        self.last_saved: dict[str, int] = {}
         self._writer: threading.Thread | None = None
         self._error: BaseException | None = None
 
@@ -83,15 +88,22 @@ class CheckpointManager:
     def save(self, state: TrainState, tag: str = "norm") -> None:
         """Save ``state`` at its step under ``tag``. Returns once the state
         is copied to host memory (async) or written (sync); the caller may
-        then go on updating ``state`` in place."""
-        self.wait()  # one write at a time, in order; raises a failed earlier one
-        host = to_host(state.state_dict())
-        if self.cfg.async_save:
-            self._writer = threading.Thread(target=self._write_recorded, args=(host, tag),
-                                            name=f"checkpoint-{tag}-{host['step']}")
-            self._writer.start()
+        then go on updating ``state`` in place. In a world only rank 0
+        does so, and every rank then waits for the others."""
+        if self.world is None or self.world.is_main:
+            self.wait()  # one write at a time, in order; raises a failed earlier one
+            host = to_host(state.state_dict())
+            self.last_saved[tag] = host["step"]
+            if self.cfg.async_save:
+                self._writer = threading.Thread(target=self._write_recorded, args=(host, tag),
+                                                name=f"checkpoint-{tag}-{host['step']}")
+                self._writer.start()
+            else:
+                self._write(host, tag)
         else:
-            self._write(host, tag)
+            self.last_saved[tag] = state.step
+        if self.world is not None:
+            self.world.barrier()
 
     def _write_recorded(self, host: dict, tag: str) -> None:
         try:

@@ -26,6 +26,10 @@ class TrainState:
     optimizer: AccumulatingSGD
     generator: torch.Generator
     step: int = 0
+    #: The ``DistributedDataParallel`` wrapper of ``model`` that the
+    #: training step's forward goes through in a world of processes
+    #: (``Trainer.init_state``); None on one process. Not saved.
+    ddp: torch.nn.Module | None = None
 
     def state_dict(self) -> dict:
         """The resume unit as tensors and plain containers. The tensors are

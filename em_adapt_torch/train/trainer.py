@@ -18,6 +18,16 @@ checkpoint's parameters only.
 Randomness: one ``torch.Generator`` on the training device draws the
 dropout masks and the E-step's class orders. It gives other draws than
 the JAX package's keys; tests inject the same orders and masks instead.
+
+Several processes (``Trainer(world=...)``, ``parallel/mesh.py``): each
+trains on its rows of the global batch, its model wrapped in
+``DistributedDataParallel``, which averages every microbatch's gradients
+over the world in the backward pass (the JAX package's psum of each
+microbatch), so ``AccumulatingSGD`` folds in the world's mean gradient.
+Every process seeds the same generator, draws the world batch's dropout
+masks and keeps its rows, then the same class orders; the E-step's batch
+max, the semi-supervised loss's valid-pixel count and the logged loss are
+the world's. Rank 0 writes the checkpoints and ``best_metric.json``.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from em_adapt_torch.ops import block1 as k23
 from em_adapt_torch.ops import estep_kernel as k1
 from em_adapt_torch.ops.estep import estep_labels, make_class_orders
 from em_adapt_torch.ops.resize import resize_nearest_tf
+from em_adapt_torch.parallel.mesh import World, all_sum, current_shard, data_axis_size
 from em_adapt_torch.train.checkpoint import CheckpointManager
 from em_adapt_torch.train.optim import AccumulatingSGD, lr_at
 from em_adapt_torch.train.state import TrainState
@@ -54,8 +65,8 @@ def config_hints(cfg: ExperimentConfig) -> list[str]:
     ``UserWarning``s at construction: the EM-Fixed ones of
     ``em_adapt_tpu/train/trainer.py::config_hints``, word for word. Its
     spatial-mesh hint (inputs of 513² and more on a multi-device mesh
-    without spatial sharding) comes with multi-GPU training, ROADMAP.md
-    Queue 1 item 11: the port runs on one card."""
+    without spatial sharding) comes with spatial partitioning, ROADMAP.md
+    Queue 1 item 11c."""
     hints = []
     if cfg.estep.method == "fixed" and cfg.estep.fixed_bias_units == "logit":
         hints.append(
@@ -127,7 +138,8 @@ def loss_fn(
 
     batch: {"image" [B,H,W,3], "label" [B,H,W,1] (255 = ignore), and with
     ``cfg.semi_supervised`` optionally "is_strong" [B] bool} tensors on
-    the model's device. ``orders`` and ``masks`` replace the draws from
+    the model's device. ``model`` may be the ``DistributedDataParallel``
+    wrapper of one. ``orders`` and ``masks`` replace the draws from
     ``generator``. Returns (total, {"loss", "loss_norm", "loss_l2",
     "weak"}); "weak" is None on a tag warm-up step.
 
@@ -142,9 +154,16 @@ def loss_fn(
     launched), but its class orders are still drawn, so the generator
     advances as on an EM step and a run resumed inside or across the
     warm-up draws what the uninterrupted run draws.
+
+    In a world of n processes each holds B/n rows of the global batch.
+    DDP averages the gradients over the world, so a mean over the local
+    rows (the weak CE, the tag loss) gives the global mean; the
+    semi-supervised CE is divided by the world's valid-pixel count and
+    scaled by n, so that the world's mean of it is the global CE.
     """
     c = cfg.model.num_classes
-    logits = model(batch["image"], train=True, generator=generator, masks=masks)
+    shard = current_shard()
+    logits = model(batch["image"], train=True, generator=generator, masks=masks, shard=shard)
     out_hw = (logits.shape[1], logits.shape[2])
     label = batch["label"]
     if tuple(label.shape[1:3]) == out_hw:
@@ -171,10 +190,13 @@ def loss_fn(
             target = torch.where(strong, true_lab, weak)
             valid = torch.where(strong, true_lab < c, True)
             ce_map = F.cross_entropy(nchw, target.clamp(0, c - 1), reduction="none")
-            ce = (ce_map * valid).sum() / valid.sum().clamp(min=1)
+            count = all_sum(valid.sum()).clamp(min=1)
+            ce = (ce_map * valid).sum() / count
+            if shard[1] > 1:
+                ce = ce * shard[1]
         else:
             ce = F.cross_entropy(nchw, weak, reduction="none").mean()
-    l2 = model.weight_l2()
+    l2 = getattr(model, "module", model).weight_l2()
     total = ce + cfg.optim.weight_decay * l2
     return total, {"loss": total.detach(), "loss_norm": ce.detach(),
                    "loss_l2": l2.detach(), "weak": weak}
@@ -189,14 +211,21 @@ def train_step(
     masks: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> dict:
     """One microbatch step in place on ``state``. Returns the metrics and
-    ``"updated"``: whether this step applied an accumulated update."""
+    ``"updated"``: whether this step applied an accumulated update. In a
+    world of processes the forward goes through ``state.ddp``, ``masks``
+    are this rank's rows, and "loss", "loss_norm" and "loss_l2" are the
+    world's means."""
     for p in state.optimizer.params:
         p.grad = None
     total, metrics = loss_fn(
-        state.model, batch, cfg, generator=state.generator, orders=orders, masks=masks,
-        step=state.step,
+        state.ddp if state.ddp is not None else state.model, batch, cfg,
+        generator=state.generator, orders=orders, masks=masks, step=state.step,
     )
     total.backward()
+    n = current_shard()[1]
+    if n > 1:
+        means = all_sum(torch.stack([metrics[k] for k in ("loss", "loss_norm", "loss_l2")])) / n
+        metrics.update(loss=means[0], loss_norm=means[1], loss_l2=means[2])
     metrics["updated"] = state.optimizer.step(state.step)
     state.step += 1
     return metrics
@@ -264,28 +293,48 @@ class LateLossReader:
 class Trainer:
     """Owns the model, optimizer, generator and checkpoints of one training run."""
 
-    def __init__(self, cfg: ExperimentConfig, *, device=None, steps_per_epoch: int | None = None):
+    def __init__(self, cfg: ExperimentConfig, *, device=None, steps_per_epoch: int | None = None,
+                 world: World | None = None):
+        """``world`` (``parallel/mesh.py::init_world``): train as one rank of
+        several processes on ``world.device``, the model wrapped in DDP;
+        ``cfg.train.batch_size`` is then the global batch and must divide
+        over the world, and the mesh's data axis must be the world's size."""
         check_supported(cfg)
         for hint in config_hints(cfg):
             warnings.warn(hint, UserWarning, stacklevel=2)
         self.cfg = cfg
+        self.world = world
+        if world is not None:
+            data_axis_size(cfg.mesh, world.size)
+            if cfg.train.batch_size % world.size:
+                raise ValueError(f"global train.batch_size {cfg.train.batch_size} not divisible "
+                                 f"by {world.size} processes")
+            device = world.device
         self.device = resolve_device(device)
         set_precision(cfg.model.compute_dtype)
         self.steps_per_epoch = steps_per_epoch or 1
-        self.checkpointer = CheckpointManager(cfg.checkpoint)
+        self.checkpointer = CheckpointManager(cfg.checkpoint, world=world)
         # The best periodic-eval score of this lineage; fit() sets it (see there).
         self._best_metric = float("-inf")
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Fresh parameters (drawn on the CPU from ``seed``, so a seed gives
-        the same weights on every device), zeroed optimizer, step 0."""
+        the same weights on every device), zeroed optimizer, step 0; in a
+        world, the model's DDP wrapper (a collective: every rank makes it)."""
         seed = self.cfg.train.seed if seed is None else seed
         model = build_model(self.cfg.model, seed, self.device)
         model.train()
         names, params = zip(*model.named_parameters())
         optimizer = AccumulatingSGD(params, self.cfg.optim, self.steps_per_epoch, names=names)
         generator = torch.Generator(self.device).manual_seed(seed + 1)
-        return TrainState(model, optimizer, generator)
+        ddp = None
+        if self.world is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            ddp = DistributedDataParallel(
+                model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                find_unused_parameters=False)
+        return TrainState(model, optimizer, generator, ddp=ddp)
 
     def restore_state(self, tag: str = "norm", step: int | None = None) -> TrainState:
         """The full state saved under ``tag`` at ``step`` (default: the
@@ -312,12 +361,14 @@ class Trainer:
     def _load_best_metric(self) -> float:
         """The best score stored beside the checkpoints, -inf when there is
         none (or it is unreadable): a resumed run's first eval must not
-        replace a better "best" saved before the preemption."""
+        replace a better "best" saved before the preemption. In a world,
+        rank 0's reading on every rank."""
         try:
             with open(self._best_metric_path()) as f:
-                return float(json.load(f)["metric"])
+                best = float(json.load(f)["metric"])
         except (OSError, ValueError, KeyError, TypeError):
-            return float("-inf")
+            best = float("-inf")
+        return best if self.world is None else self.world.broadcast(best)
 
     def _store_best_metric(self, score: float, step: int) -> None:
         """Write ``best_metric.json`` atomically (a temporary file renamed
@@ -506,7 +557,8 @@ class Trainer:
                     if score > self._best_metric:
                         self._best_metric = score
                         checked_save("best")
-                        self._store_best_metric(score, state.step)
+                        if self.world is None or self.world.is_main:
+                            self._store_best_metric(score, state.step)
                     # Eval is synchronous host work: the next window's
                     # throughput counts steps only.
                     t_window, n_window = time.perf_counter(), len(records)

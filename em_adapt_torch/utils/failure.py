@@ -7,8 +7,16 @@ step boundary; a second one goes to the handler that was there before.
 ``LossWatchdog`` flags a non-finite loss, and a loss that stays bit for
 bit the same for ``patience`` checks (a dead pipeline or a zero LR).
 
-Single process: the agreement between processes on the stop step comes
-with multi-GPU training (ROADMAP.md Queue 1 item 11).
+In a world of several processes (``parallel/mesh.py``) a signal may reach
+only some of them, and they must all stop at one step: the preemption
+save is followed by a barrier, and a rank that trained one step more
+would wait in a collective its peers never enter. So the flag is agreed
+on every step by a host all-reduce (gloo, on host tensors: it does not
+wait behind the card's queue) that every rank enters at the same step,
+before it pulls a batch; the stop step is then the max of the ranks'
+proposals. A failed collective raises; nothing falls back to the local
+flag (the JAX package's key-value scheme had a first-writer race and a
+silent fallback, ADVICE.md).
 """
 
 from __future__ import annotations
@@ -16,6 +24,21 @@ from __future__ import annotations
 import math
 import signal
 import threading
+
+import torch
+import torch.distributed as dist
+
+from em_adapt_torch.parallel.mesh import current_shard
+
+
+def _world_max(value: int) -> int:
+    """The max of ``value`` over the world (a gloo all-reduce of a host
+    int64); ``value`` itself on one process."""
+    if current_shard()[1] == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
 
 
 class GracefulShutdown:
@@ -34,12 +57,16 @@ class GracefulShutdown:
         return self._flag.is_set()
 
     def requested_uniform(self) -> bool:
-        """Whether any process was asked to stop: one process, so the local flag."""
-        return self._flag.is_set()
+        """Whether any process of the world was asked to stop: the max of
+        the local flags. Every rank calls it at the same point of each step;
+        on one process it is the local flag."""
+        return bool(_world_max(int(self._flag.is_set())))
 
     def agreed_stop_step(self, proposal: int) -> int:
-        """The step every process stops at: one process, so ``proposal``."""
-        return proposal
+        """The step every process stops at: the max of the ranks'
+        proposals, so no rank has to undo a step (each proposes its own
+        next step boundary); ``proposal`` on one process."""
+        return _world_max(proposal)
 
     def _handler(self, signum, frame):
         if self._flag.is_set():

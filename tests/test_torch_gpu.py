@@ -977,3 +977,46 @@ def test_crf_device_at_the_129_bucket_on_the_card_matches_the_cpu(cuda_device):
     assert float((got.cpu() - want).abs()[valid].max()) <= 4 * move
     agree = (got.cpu().argmax(-1) == want.argmax(-1))[valid].float().mean()
     assert float(agree) >= 0.999
+
+
+@pytest.mark.gpu
+def test_world_of_one_over_nccl_steps_bit_equal_to_no_world(cuda_device, tmp_path):
+    """A world of one process over NCCL (``parallel/mesh.py::init_world``,
+    the model in DDP): two train steps give the losses and parameters of
+    the same steps without a world bit for bit (DDP's all-reduce of one
+    rank divides by 1), K1 launched once a step in both."""
+    from em_adapt_torch.config import apply_overrides, ExperimentConfig
+    from em_adapt_torch.device import set_deterministic
+    from em_adapt_torch.ops import estep_kernel as k1
+    from em_adapt_torch.parallel.mesh import init_world
+    from em_adapt_torch.train.state import bitwise_diff
+    from em_adapt_torch.train.trainer import Trainer
+
+    set_deterministic()
+    cfg = apply_overrides(ExperimentConfig(), [
+        "model.num_classes=4", "model.input_size=(33,33)", "model.fc6_channels=16",
+        "model.width_multiplier=0.125", "optim.accum_steps=1", "train.batch_size=4"])
+    g = np.random.default_rng(0)
+    batches = [{"image": (g.normal(size=(4, 33, 33, 3)) * 40).astype(np.float32),
+                "label": g.integers(0, 4, size=(4, 33, 33, 1)).astype(np.float32)}
+               for _ in range(2)]
+
+    def run(world):
+        trainer = Trainer(cfg, device="cuda:0", world=world, steps_per_epoch=10)
+        state = trainer.init_state()
+        before = k1.launches
+        losses = [float(trainer.train_step(state, b)["loss"]) for b in batches]
+        assert k1.launches - before == 2
+        return losses, state
+
+    alone_losses, alone = run(None)
+    world = init_world("cuda:0", coordinator=f"file://{tmp_path}/store", num_processes=1,
+                       process_id=0, timeout=60)
+    try:
+        assert world.device == torch.device("cuda", 0) and world.size == 1
+        losses, state = run(world)
+        assert state.ddp is not None
+    finally:
+        world.close()
+    assert losses == alone_losses
+    assert bitwise_diff(state.model.state_dict(), alone.model.state_dict()) == []

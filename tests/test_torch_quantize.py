@@ -4,8 +4,9 @@
 (``tests/fixtures/model_small.npz``), and the ports of
 ``tests/test_quantize.py``'s cases with their thresholds. Its two mesh
 cases (``test_quantized_model_composes_with_mesh_sharded_evaluator``,
-``test_quantized_predict_shards_over_data_mesh``) wait for multi-GPU
-evaluation, ROADMAP.md Queue 1 item 11."""
+``test_quantized_predict_shards_over_data_mesh``) run as a world of two
+gloo processes (``tests/test_torch_parallel.py::run_world``): the port's
+data axis is one process a card."""
 
 import os
 
@@ -270,3 +271,42 @@ def test_quantized_model_moves_with_its_buffers(qmodel):
     assert sd["layers.fc6.w8"].dtype == torch.int8
     assert set(sd) == {f"layers.{n}.{k}" for n, *_ in layer_specs(PORT_CFG)
                        for k in ("w8", "scale", "inv_sx", "b")}
+
+
+@pytest.fixture(scope="module")
+def int8_world(tmp_path_factory, fixture_model, qmodel):
+    """The int8 model over a batch of 8 (the fixture's 2 images 4 times),
+    4 rows on each of 2 gloo processes, and the labels it is scored on."""
+    from tests.test_torch_parallel import run_world
+
+    x8 = np.concatenate([fixture_model[3]] * 4)
+    label = np.random.default_rng(3).integers(0, 5, size=x8.shape[:3] + (1,)).astype(np.float32)
+    cfg = pcfg.ExperimentConfig(model=PORT_CFG, eval=pcfg.EvalConfig(batch_size=2))
+    payload = dict(cfg=cfg, qmodel=qmodel, image=x8, label=label)
+    return payload, run_world("_int8_world", 2, payload, tmp_path_factory.mktemp("int8"))
+
+
+def test_quantized_model_composes_with_process_sharded_evaluator(qmodel, int8_world):
+    """The int8 model under the process-sharded evaluation: each rank's
+    fixed-protocol matrix of its rows, summed over the world, is the one
+    process's matrix of all 8 rows exactly (the counterpart of the JAX
+    package's mesh-sharded Evaluator)."""
+    from em_adapt_torch.eval.predict import Evaluator
+
+    payload, ranks = int8_world
+    ev = Evaluator(payload["cfg"], qmodel)
+    want = ev.confusion_fixed([{"image": payload["image"][i:i + 2],
+                                "label": payload["label"][i:i + 2]} for i in range(0, 8, 2)])
+    assert want.sum() == 8 * 65 * 65
+    for summed, _ in ranks:
+        np.testing.assert_array_equal(summed, want)
+
+
+def test_quantized_predict_shards_over_a_world_of_two(qmodel, int8_world):
+    """int8 predict over a world of 2: each rank's rows, stacked, are one
+    process's labels of the batch of 8 exactly."""
+    from em_adapt_torch.eval.predict import Evaluator
+
+    payload, ranks = int8_world
+    want = Evaluator(payload["cfg"], qmodel).predict_batch(payload["image"]).numpy()
+    np.testing.assert_array_equal(np.concatenate([p for _, p in ranks]), want)
