@@ -43,7 +43,10 @@ device time, peak memory); and "accuracy": the CRF tuning and the
 accuracy-cost tools at a cut size, every arm on the card; and "multi":
 ``train --multihost`` at full width, a world of one over NCCL against no
 world (bit-equal), a world of two on the card over gloo against one
-process, and a SIGTERM to one of the two; then checks what comes out. Every
+process, and a SIGTERM to one of the two; and "mesh": the mesh's model
+axis (fc6/fc7 over two processes) at 321x321 and space axis (the image's
+rows over three) at 513x513 through ``train --multihost mesh.axes=...``
+against one process; then checks what comes out. Every
 phase raises on failure and the script then exits non-zero; without a
 CUDA card, or without the ``em_adapt_torch`` package beside it, it exits
 non-zero before printing any result. ``--quick``
@@ -59,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import dataclasses
 import glob
 import json
 import math
@@ -3414,6 +3418,34 @@ def saved_params(work: str, step: int) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)["params"]
 
 
+def check_leaves(what: str, world: str, init: dict, p1: dict, p2: dict,
+                 card: str) -> tuple[float, float]:
+    """Per leaf, how far a world's saved parameters ``p2`` are from one
+    process's ``p1``, against ``MULTI_PARAMS_RATIO`` of how far ``p1``
+    moved from ``init`` plus ``MULTI_PARAMS_ULPS`` of the leaf's float32
+    resolution; raises past the bound, or when no leaf moved 1e3 ulps.
+    Returns (max apart, max moved)."""
+    leaves = {}
+    for k in init:
+        moved_k = float((p1[k] - init[k]).abs().max())
+        ulp = float(np.spacing(np.float32(p1[k].abs().max())))
+        leaves[k] = dict(apart=float((p2[k] - p1[k]).abs().max()), moved=moved_k, ulp=ulp,
+                         bound=MULTI_PARAMS_RATIO * moved_k + MULTI_PARAMS_ULPS * ulp)
+    worst = sorted(leaves, key=lambda k: leaves[k]["apart"] / leaves[k]["bound"])[-3:]
+    moved = max(v["moved"] for v in leaves.values())
+    apart = max(v["apart"] for v in leaves.values())
+    resolved = max(v["moved"] / v["ulp"] for v in leaves.values())
+    log(f"{what}: parameters after {MULTI_STEPS} updates: {world} against one process "
+        f"max abs {apart:.3e}, the update from the init max abs {moved:.3e} (up to "
+        f"{resolved:.0f} float32 ulps of its leaf); the leaves nearest their bound "
+        f"{[(k, {n: f'{v:.3e}' for n, v in leaves[k].items()}) for k in worst]}; {card}")
+    over = [k for k, v in leaves.items() if not v["apart"] <= v["bound"]]
+    if over or resolved < 1e3:
+        raise AssertionError(f"{what}: leaves past their bound {over}, or no leaf "
+                             f"moved 1e3 ulps ({resolved})")
+    return apart, moved
+
+
 def multi_phase(device, card: str) -> dict:
     """Phase "multi": data-parallel training through ``python -m
     em_adapt_torch train --multihost`` (``tools/multihost_dryrun.py::launch``)
@@ -3430,14 +3462,16 @@ def multi_phase(device, card: str) -> dict:
         two ranks on one card), f32 ``reference``, global batch 6 (3 a
         process), ``MULTI_STEPS`` steps, the process-sharded eval on
         ``MULTI_VAL_IMAGES`` val images at the last step, beside one
-        process: losses within rel 1e-5 at every step, val mIoU within
+        process (the two run together): losses within rel 1e-5 at every step, val mIoU within
         1e-6, "norm" and "best" written once, K1 once a step on rank 0,
         and each saved leaf within ``MULTI_PARAMS_RATIO`` of its update
         from the init and ``MULTI_PARAMS_ULPS`` float32 ulps;
     (c) the same world of two for ``MULTI_PREEMPT_STEPS`` steps, SIGTERM to
         rank 1 alone after step ``MULTI_PREEMPT_AFTER``: both processes
         stop at one step, "norm" is saved once there and both exit 0.
-    Every process's failure fails the phase (``launch`` raises)."""
+    Every process's failure fails the phase (``launch`` raises). Returns
+    the checks and, under "lone", (b)'s one process (losses, val, saved
+    parameters), which "mesh" (a) holds its world to."""
     import shutil
     import tempfile
 
@@ -3494,12 +3528,12 @@ def multi_phase(device, card: str) -> dict:
         gloo = ["--dist-backend", "gloo"]
         ev = [f"train.eval_every_steps={MULTI_STEPS}"]
         t0 = time.perf_counter()
-        one = md.launch(1, MULTI_STEPS, os.path.join(work, "b-one"), synthetic=24,
-                        extra_flags=flags, overrides_extra=ev, **common)
+        with cf.ThreadPoolExecutor(2) as pool:  # nothing timed: the two run together
+            jobs = [pool.submit(md.launch, n, MULTI_STEPS, os.path.join(work, name), synthetic=24,
+                                extra_flags=f, overrides_extra=ev, **common)
+                    for n, name, f in ((1, "b-one", flags), (2, "b-two", flags + gloo))]
+            one, two = (j.result() for j in jobs)
         t1 = time.perf_counter()
-        two = md.launch(2, MULTI_STEPS, os.path.join(work, "b-two"), synthetic=24,
-                        extra_flags=flags + gloo, overrides_extra=ev, **common)
-        t2 = time.perf_counter()
         want, got = md.loss_stream(one), md.loss_stream(two)
         val_want, val_got = md.val_stream(one), md.val_stream(two)
         rank0 = [(r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
@@ -3510,7 +3544,7 @@ def multi_phase(device, card: str) -> dict:
             want) else None
         log(f"multi (b): world 2 on one card (gloo), f32 reference, global batch 6: losses "
             f"{got} against one process's {want} (max rel {rel}); val {val_got} against "
-            f"{val_want}; saved {saved}; {t1 - t0:.1f} s and {t2 - t1:.1f} s; rank 0's "
+            f"{val_want}; saved {saved}; {t1 - t0:.1f} s for both, run together; rank 0's "
             f"K1/K2/K3 launches a step {rank0}; {card}")
         if rank0 != [(1, 0, 0)] * MULTI_STEPS:
             raise AssertionError(f"multi (b): rank 0 launched K1/K2/K3 {rank0}")
@@ -3527,31 +3561,12 @@ def multi_phase(device, card: str) -> dict:
         from em_adapt_torch.models.deeplab import build_model
 
         init = build_model(ExperimentConfig().model, 0, torch.device("cpu")).state_dict()
-        p1 = saved_params(os.path.join(work, "b-one"), MULTI_STEPS)
-        p2 = saved_params(os.path.join(work, "b-two"), MULTI_STEPS)
-        # Per leaf: how far the world's parameters are from one process's,
-        # against MULTI_PARAMS_RATIO of how far one process's moved from the
-        # init plus MULTI_PARAMS_ULPS of the leaf's float32 resolution.
-        leaves = {}
-        for k in init:
-            moved_k = float((p1[k] - init[k]).abs().max())
-            ulp = float(np.spacing(np.float32(p1[k].abs().max())))
-            leaves[k] = dict(apart=float((p2[k] - p1[k]).abs().max()), moved=moved_k, ulp=ulp,
-                             bound=MULTI_PARAMS_RATIO * moved_k + MULTI_PARAMS_ULPS * ulp)
-        worst = sorted(leaves, key=lambda k: leaves[k]["apart"] / leaves[k]["bound"])[-3:]
-        moved = max(v["moved"] for v in leaves.values())
-        apart = max(v["apart"] for v in leaves.values())
-        resolved = max(v["moved"] / v["ulp"] for v in leaves.values())
-        log(f"multi (b): parameters after {MULTI_STEPS} updates: world 2 against one process "
-            f"max abs {apart:.3e}, the update from the init max abs {moved:.3e} (up to "
-            f"{resolved:.0f} float32 ulps of its leaf); the leaves nearest their bound "
-            f"{[(k, {n: f'{v:.3e}' for n, v in leaves[k].items()}) for k in worst]}; {card}")
-        over = [k for k, v in leaves.items() if not v["apart"] <= v["bound"]]
-        if over or resolved < 1e3:
-            raise AssertionError(f"multi (b): leaves past their bound {over}, or no leaf "
-                                 f"moved 1e3 ulps ({resolved})")
+        lone = saved_params(os.path.join(work, "b-one"), MULTI_STEPS)
+        apart, moved = check_leaves("multi (b)", "world 2", init, lone,
+                                    saved_params(os.path.join(work, "b-two"), MULTI_STEPS), card)
         out["world2"] = dict(losses=got, one=want, max_rel=rel, val=val_got, val_one=val_want,
                              params_apart=apart, params_moved=moved, launches=rank0)
+        out["lone"] = dict(losses=want, val=val_want, params=lone)
 
         # (c) SIGTERM to rank 1 alone.
         d = os.path.join(work, "c")
@@ -3569,6 +3584,266 @@ def multi_phase(device, card: str) -> dict:
         out["preempt_step"] = stopped[0]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+#: Phase "mesh": the model axis (a) and the space axis (b) through
+#: ``train --multihost`` on the one card over gloo, ``MULTI_STEPS`` steps.
+MESH_TP = '(("data",1),("space",1),("model",2))'
+MESH_SP = '(("data",1),("space",3))'
+#: The bound on a bf16 world's first loss against the f32 world's: bf16
+#: rounds each conv's output (and, on the model axis, fc7's partial sums).
+MESH_BF16_REL = 1e-2
+
+
+def rank_reports(work: str, n: int) -> list[dict]:
+    """Each rank's "rank R: K1/K2/K3 launches a step [...]; peak device
+    memory N B" line of ``train --multihost`` (``procR.log``)."""
+    import ast
+
+    out = []
+    for r in range(n):
+        with open(os.path.join(work, f"proc{r}.log")) as f:
+            line = next(ln for ln in f if ln.startswith(f"rank {r}: "))
+        launches = ast.literal_eval(line.split("launches a step ")[1].split("; peak")[0])
+        peak = line.split("peak device memory ")[1].split()[0]
+        out.append(dict(launches=launches, peak=int(peak) if peak.isdigit() else None))
+    return out
+
+
+def halo_bytes(model_cfg, batch: int, n: int, elem: int) -> int:
+    """Bytes that the space axis's halo exchanges move in one forward pass
+    over ``n`` ranks (each fetched row once), from the layer shapes: the
+    backward returns as many, and remat's recompute repeats the forward's."""
+    from em_adapt_torch.models.deeplab import POOLS, layer_specs
+    from em_adapt_torch.ops.conv import same_padding
+    from em_adapt_torch.ops.pooling import _same_pool_padding
+    from em_adapt_torch.parallel.spatial import _send_plan, row_split
+
+    def rows(h_in: int, h_out: int, k_eff: int, stride: int, pad: int) -> int:
+        needs = [(max(lo * stride - pad, 0), min((hi - 1) * stride - pad + k_eff, h_in))
+                 for lo, hi in row_split(h_out, n)]
+        return sum(seg[1] - seg[0] for line in _send_plan(row_split(h_in, n), needs)
+                   for seg in line if seg is not None)
+
+    h, w = model_cfg.input_size
+    total = 0
+    for name, kh, _, cin, cout, rate in layer_specs(model_cfg):
+        if kh > 1:
+            total += rows(h, h, (kh - 1) * rate + 1, 1, same_padding(kh, rate)[0]) * batch * cin * w
+        if name in POOLS:
+            stride = POOLS[name]
+            total += rows(h, -(-h // stride), 3, stride,
+                          _same_pool_padding(h, 3, stride)[0]) * batch * cout * w
+            h, w = -(-h // stride), -(-w // stride)
+    return total * elem
+
+
+def trace_host_ms(trace_dir: str, name: str, steps: int) -> tuple[float, int]:
+    """(host ms a step, ranges a step) of the ``record_function(name)``
+    ranges in the Chrome trace under ``trace_dir``."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("name") == name
+                  and e.get("cat") in ("user_annotation", "cpu_op")]
+    return sum(e["dur"] for e in events) / 1e3 / steps, len(events) // steps
+
+
+def mesh_phase(device, card: str, highres: dict, lone: dict) -> dict:
+    """Phase "mesh": the mesh's model and space axes through ``python -m
+    em_adapt_torch train --multihost`` (``tools/multihost_dryrun.py::launch``
+    with ``mesh.axes``) at full width (65,140,565 parameters, 21 classes)
+    on the one card, every world over gloo (NCCL refuses two ranks on one
+    card), ``--deterministic``, ``MULTI_OVERRIDES``, ``MULTI_STEPS`` steps:
+
+    (a) the model axis, ``MESH_TP`` (2 processes: fc6/fc7 split), f32
+        ``reference`` at 321², global batch 6, the periodic eval on
+        ``MULTI_VAL_IMAGES`` images at the last step, beside one process:
+        "multi" (b)'s, which runs this command without the mesh (``lone``:
+        its losses, val and saved parameters). Losses within rel 1e-5 at
+        every step, val mIoU within 1e-6, "norm" and "best" written once
+        (the whole model, gathered), each saved leaf within the "multi"
+        bound (:func:`check_leaves`), K1 once a step on each rank; then the
+        same world with ``--preset gpu-perf``: K1, K2 and K3 once a step on
+        each rank, finite losses, the first within ``MESH_BF16_REL`` of the
+        f32 world's;
+    (b) the space axis at the user's size, ``MESH_SP`` (3 processes, 171
+        image rows each) with ``--preset gpu-highres``: first with
+        ``model.compute_dtype=float32`` beside one process with the same
+        overrides (losses within rel 1e-5, each saved leaf within the
+        "multi" bound from the 513² init, K1 once a step on each rank at
+        65², K2/K3 never: f32 takes the conv path in both), then in bf16 as
+        the preset is (K1 once a step on each rank, K2/K3 never: on row
+        strips block 1 takes the conv path; finite losses, the first within
+        ``MESH_BF16_REL`` of the f32 world's), profiled: each rank's peak
+        memory against the one-process ``gpu-highres`` peak of "presets"
+        (``highres``), the step's wall against its wall, and rank 0's
+        exchange: the host time of its ``space_exchange`` ranges and the
+        device time of the trace's copies; the halo bytes from the shapes
+        (:func:`halo_bytes`).
+    At the init every step-1 loss is ln(21) plus the weight decay's term
+    (the logits are near uniform), so the bf16 first-loss bounds cannot
+    fail there; the per-leaf bounds are what hold the worlds' updates.
+    The runs whose wall is not measured (all of (a), (b)'s f32 pair) run
+    together; the profiled bf16 world runs alone. Returns the checks and,
+    under "launches", each world's K1/K2/K3 launches over its run by rank."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from em_adapt_torch.__main__ import train_presets
+    from em_adapt_torch.config import ExperimentConfig, apply_overrides
+    from em_adapt_torch.models.deeplab import build_model
+    from em_adapt_torch.tools import multihost_dryrun as md
+
+    work = tempfile.mkdtemp(prefix="mesh-", dir=os.path.join(ROOT, "build"))
+    common = dict(model=MULTI_OVERRIDES, device=f"cuda:{device.index or 0}", threads=None,
+                  synthetic=24)
+    flags, gloo = ["--deterministic"], ["--dist-backend", "gloo"]
+    launches: dict[str, list[list[int]]] = {}
+    out = {}
+
+    def run(name: str, n: int, extra_flags, overrides) -> tuple[str, list[dict], float]:
+        d = os.path.join(work, name)
+        t0 = time.perf_counter()
+        path = md.launch(n, MULTI_STEPS, d, extra_flags=extra_flags + (gloo if n > 1 else []),
+                         overrides_extra=overrides, **common)
+        return path, rank_reports(d, n) if n > 1 else [], time.perf_counter() - t0
+
+    def together(*jobs) -> list[tuple[str, list[dict], float]]:
+        """The runs ``jobs`` at once (their walls are not measurements)."""
+        with cf.ThreadPoolExecutor(len(jobs)) as pool:
+            done = [f.result() for f in [pool.submit(run, *job) for job in jobs]]
+        for job, (_, reports, _) in zip(jobs, done):
+            if reports:
+                launches[job[0]] = [[sum(step[k] for step in rep["launches"]) for k in range(3)]
+                                    for rep in reports]
+        return done
+
+    def expect(what: str, reports: list[dict], want: tuple[int, int, int]) -> None:
+        for r, rep in enumerate(reports):
+            if [tuple(x) for x in rep["launches"]] != [want] * MULTI_STEPS:
+                raise AssertionError(f"mesh {what}: rank {r} launched K1/K2/K3 "
+                                     f"{rep['launches']}, not {want} a step")
+
+    def close(what: str, got: dict, want: dict, rel: float) -> float:
+        worst = (max(abs(got[s] - want[s]) / abs(want[s]) for s in want)
+                 if set(got) == set(want) else None)
+        if worst is None or len(want) != MULTI_STEPS or worst > rel:
+            raise AssertionError(f"mesh {what}: losses {got} against {want}")
+        return worst
+
+    def first_close(what: str, got: dict, want: dict) -> float:
+        if len(got) != MULTI_STEPS or not all(math.isfinite(v) for v in got.values()):
+            raise AssertionError(f"mesh {what}: losses {got}")
+        rel = abs(got[1] - want[1]) / abs(want[1])
+        if rel > MESH_BF16_REL:
+            raise AssertionError(f"mesh {what}: first loss {got[1]} against {want[1]}")
+        return rel
+
+    try:
+        ev = ["--synthetic-val", str(MULTI_VAL_IMAGES)]
+        ev_every = [f"train.eval_every_steps={MULTI_STEPS}"]
+        hr = ["--preset", "gpu-highres"]
+        f32 = ["model.compute_dtype=float32"]
+        sp_axes = [f"mesh.axes={MESH_SP}"]
+        ((tp, tp_reports, t_tp), (bf, bf_reports, t_bf), (one, _, t_one),
+         (sp, sp_reports, t_sp)) = together(
+            ("a-tp", 2, flags + ev, ev_every + [f"mesh.axes={MESH_TP}"]),
+            ("a-tp-bf16", 2, flags + ["--preset", "gpu-perf"], [f"mesh.axes={MESH_TP}"]),
+            ("b-one", 1, flags + hr, f32),
+            ("b-sp", 3, flags + hr, f32 + sp_axes))
+
+        # (a) the model axis at 321², against "multi" (b)'s one process.
+        want, got = lone["losses"], md.loss_stream(tp)
+        rel = close("(a)", got, want, 1e-5)
+        val_want, val_got = lone["val"], md.val_stream(tp)
+        saved = {tag: sorted(os.listdir(os.path.join(work, "a-tp", "saver", tag)))
+                 for tag in ("norm", "best")}
+        log(f"mesh (a): model axis {MESH_TP} on one card (gloo), f32 reference, global batch 6: "
+            f"losses {got} against one process's {want} (\"multi\" (b)'s; max rel {rel}); val "
+            f"{val_got} against {val_want}; saved {saved}; K1/K2/K3 launches a step by rank "
+            f"{[r['launches'] for r in tp_reports]}; peaks {[r['peak'] for r in tp_reports]} B; "
+            f"{t_tp:.1f} s, run together with the bf16 world and (b)'s f32 pair; {card}")
+        expect("(a)", tp_reports, (1, 0, 0))
+        if not (set(val_got) == set(val_want) == {MULTI_STEPS}) or abs(
+                val_got[MULTI_STEPS] - val_want[MULTI_STEPS]) > 1e-6:
+            raise AssertionError(f"mesh (a): val {val_got} against {val_want}")
+        if saved != {"norm": [str(MULTI_STEPS)], "best": [str(MULTI_STEPS)]}:
+            raise AssertionError(f"mesh (a): saved {saved}")
+        init = build_model(ExperimentConfig().model, 0, torch.device("cpu")).state_dict()
+        n_params = sum(t.numel() for t in init.values())
+        apart, moved = check_leaves("mesh (a)", "the model-axis world", init, lone["params"],
+                                    saved_params(os.path.join(work, "a-tp"), MULTI_STEPS), card)
+        bf_got = md.loss_stream(bf)
+        log(f"mesh (a) bf16: --preset gpu-perf on {MESH_TP}: losses {bf_got} (first against the "
+            f"f32 world's {got[1]}); K1/K2/K3 launches a step by rank "
+            f"{[r['launches'] for r in bf_reports]}; peaks {[r['peak'] for r in bf_reports]} B; "
+            f"{t_bf:.1f} s; {card}")
+        expect("(a) bf16", bf_reports, (1, 1, 1))
+        bf_rel = first_close("(a) bf16", bf_got, got)
+        out["model"] = dict(losses=got, one=want, max_rel=rel, val=val_got, val_one=val_want,
+                            params_apart=apart, params_moved=moved, bf16_losses=bf_got,
+                            bf16_first_rel=bf_rel,
+                            peaks=[r["peak"] for r in tp_reports + bf_reports])
+
+        # (b) the space axis at 513².
+        want, got = md.loss_stream(one), md.loss_stream(sp)
+        rel = close("(b)", got, want, 1e-5)
+        log(f"mesh (b): space axis {MESH_SP} at 513x513 on one card (gloo), f32, global batch 6 "
+            f"(171 image rows a rank): losses {got} against one process's {want} (max rel "
+            f"{rel}); K1/K2/K3 launches a step by rank {[r['launches'] for r in sp_reports]}; "
+            f"peaks {[r['peak'] for r in sp_reports]} B; {t_one:.1f} s and {t_sp:.1f} s, run "
+            f"together with (a); {card}")
+        expect("(b)", sp_reports, (1, 0, 0))
+        cfg_b = apply_overrides(ExperimentConfig(), [*train_presets()["gpu-highres"], *f32])
+        init = build_model(cfg_b.model, cfg_b.train.seed, torch.device("cpu")).state_dict()
+        sp_apart, sp_moved = check_leaves(
+            "mesh (b)", "the space-axis world", init,
+            saved_params(os.path.join(work, "b-one"), MULTI_STEPS),
+            saved_params(os.path.join(work, "b-sp"), MULTI_STEPS), card)
+        trace = os.path.join(work, "b-sp-bf16-trace")
+        (bf, bf_reports, t_bf), = together(  # alone: its wall and trace are measured
+            ("b-sp-bf16", 3, flags + hr + ["--profile-dir", trace], sp_axes))
+        bf_got = md.loss_stream(bf)
+        records = [r for r in md.read_records(bf) if "loss" in r]
+        step_ms = statistics.median(r["window_seconds"] for r in records[1:]) * 1e3
+        by_name = trace_device_ms(os.path.join(trace, "rank0"), MULTI_STEPS)
+        copies = {k: v for k, v in by_name.items() if k.startswith("Memcpy")}
+        host_ms, ranges = trace_host_ms(os.path.join(trace, "rank0"), "space_exchange",
+                                        MULTI_STEPS)
+        peaks = [r["peak"] for r in bf_reports]
+        halo = halo_bytes(dataclasses.replace(ExperimentConfig().model, input_size=(513, 513)),
+                          6, 3, 2)
+        log(f"mesh (b) bf16: --preset gpu-highres on {MESH_SP}: losses {bf_got} (first against "
+            f"the f32 world's {got[1]}); K1/K2/K3 launches a step by rank "
+            f"{[r['launches'] for r in bf_reports]}; peak memory by rank {peaks} B (max "
+            f"{max(peaks) / 2**30:.3f} GiB) against one process's gpu-highres peak "
+            f"{highres['peak']} B ({highres['peak'] / 2**30:.3f} GiB) in \"presets\"; wall "
+            f"{step_ms:.1f} ms a step (median log window of steps 2..{MULTI_STEPS}, profiler on) "
+            f"against one process's {highres['step_ms']:.1f} ms; rank 0's exchange: "
+            f"{ranges} space_exchange ranges a step, {host_ms:.1f} ms of host time a step; "
+            f"device copies a step {({k: round(v, 4) for k, v in copies.items()})} ms, device "
+            f"total {sum(by_name.values()):.2f} ms a step; halo rows a forward pass {halo} B "
+            f"(from the shapes; the backward returns as many, remat's recompute repeats the "
+            f"forward's), DDP's gradient all-reduce {n_params * 4} B a step; {t_bf:.1f} s; "
+            f"{card}")
+        expect("(b) bf16", bf_reports, (1, 0, 0))
+        bf_rel = first_close("(b) bf16", bf_got, got)
+        if any(p is None for p in peaks):
+            raise AssertionError(f"mesh (b) bf16: peaks {peaks}")
+        out["space"] = dict(losses=got, one=want, max_rel=rel, params_apart=sp_apart,
+                            params_moved=sp_moved, bf16_losses=bf_got,
+                            bf16_first_rel=bf_rel, peaks=peaks, one_peak=highres["peak"],
+                            step_ms=step_ms, one_step_ms=highres["step_ms"],
+                            exchange_host_ms=host_ms, exchange_ranges=ranges,
+                            copies_ms=copies, device_ms=sum(by_name.values()), halo_bytes=halo)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    log(f"mesh: K1/K2/K3 launches over each world's run by rank {launches}; {card}")
     return out
 
 
@@ -3663,15 +3938,18 @@ def main(argv=None) -> int:
     phase("export", export_phase, device, card)
     phase("int8", int8_phase, device, card)
     phase("schedule", schedule_phase, device, card)
-    phase("presets", presets_phase, device, card)
+    presets_result = phase("presets", presets_phase, device, card)
     phase("accuracy", accuracy_phase, device, card)
-    phase("multi", multi_phase, device, card)
+    multi = phase("multi", multi_phase, device, card)
+    mesh = phase("mesh", mesh_phase, device, card, presets_result["gpu-highres"],
+                  multi.pop("lone"))["launches"]
     kernels = [{
         "name": "estep",
         "route": "cuda",
         "source": "em_adapt_torch/csrc/estep.cu",
         "replaces": "em_adapt_tpu/ops/estep_pallas.py:52",
         "launches": train_result["launches"]["estep"],
+        "mesh_launches": {w: [r[0] for r in ranks] for w, ranks in mesh.items()},
         "max_abs_err": k1_result["max_abs_err"],
         "ms": t6["ms"],
         "plain_ms": t6["plain_ms"],
@@ -3684,6 +3962,7 @@ def main(argv=None) -> int:
         "source": "em_adapt_torch/csrc/block1_fwd.cu",
         "replaces": "em_adapt_tpu/ops/block1_pallas.py:352",
         "launches": eval_result["launches"],
+        "mesh_launches": {w: [r[1] for r in ranks] for w, ranks in mesh.items()},
         "max_abs_err": k2_result["max_abs_err"],
         "ms": k2_result["ms"],
         "plain_ms": k2_result["plain_ms"],
@@ -3696,6 +3975,7 @@ def main(argv=None) -> int:
         "source": "em_adapt_torch/csrc/block1_bwd.cu",
         "replaces": "em_adapt_tpu/ops/block1_pallas.py:363",
         "launches": bf16_result["launches"]["block1_bwd"],
+        "mesh_launches": {w: [r[2] for r in ranks] for w, ranks in mesh.items()},
         "max_abs_err": k3_result["max_abs_err"],
         "ms": k3_result["ms"],
         "plain_ms": k3_result["plain_ms"],

@@ -50,10 +50,14 @@ deterministic algorithms before the model is built
 sum alike. ``train --multihost`` trains as one process of several, one a
 card (``parallel/mesh.py``): the process group is joined from
 ``--coordinator HOST:PORT --num-processes N --process-id I`` (or from
-torchrun's environment), ``train.batch_size`` is the global batch, each
-process takes its rows of it, and the periodic eval scores each process's
-block of the val set and sums the confusion matrices; rank 0 prints, logs
-and writes the checkpoints (``em_adapt_tpu/cli.py:99-110, 308-320``).
+torchrun's environment) and laid out by ``mesh.axes`` as data × space ×
+model (``MeshPlan``); ``train.batch_size`` is the global batch, each data
+index takes its images of it, each space rank its rows of them (sliced on
+the host), each model rank its part of fc6/fc7; the periodic eval scores
+each data × space block of the val set and sums the confusion matrices;
+rank 0 prints, logs and writes the checkpoints (the whole model), and
+every rank prints its kernel launches a step and its peak device memory
+at the end (``em_adapt_tpu/cli.py:99-110, 308-320``).
 
 The serving commands (``em_adapt_tpu/cli.py:639-919``): ``predict``
 writes a VOC-palette PNG mask per image at the image's own size (the
@@ -86,6 +90,8 @@ import os
 import re
 import sys
 
+import torch
+
 from em_adapt_torch.config import ExperimentConfig, apply_overrides, check_supported, flatten
 from em_adapt_torch.data.pipeline import (
     DatasetShard, DevicePrefetcher, LearnableSyntheticVOC, SyntheticVOC, VOCSegmentation,
@@ -96,7 +102,7 @@ from em_adapt_torch.device import card_info, resolve_device, set_deterministic
 from em_adapt_torch.eval.miou import miou_from_confusion
 from em_adapt_torch.eval.predict import Evaluator
 from em_adapt_torch.models.deeplab import build_model
-from em_adapt_torch.parallel.mesh import DEFAULT_TIMEOUT, World, init_world
+from em_adapt_torch.parallel.mesh import DEFAULT_TIMEOUT, MeshPlan, World, init_world, make_plan
 from em_adapt_torch.train.checkpoint import CheckpointManager, split_checkpoint
 from em_adapt_torch.train.trainer import Trainer
 from em_adapt_torch.utils.logging import MetricLogger
@@ -385,7 +391,8 @@ def parse_warm_start(spec: str) -> tuple[str, int | None]:
     return spec, None
 
 
-def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None):
+def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None,
+                 plan: MeshPlan | None = None):
     """The periodic eval of ``train``: the mIoU of the training model on
     the split "val" (or ``--synthetic-val`` synthetic images, default a
     quarter of ``--synthetic``, at least 2; with ``--synthetic-learnable``
@@ -395,11 +402,15 @@ def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None
     by the VOC protocol (``Evaluator.confusion_voc``), so that "best"
     follows the headline number's protocol.
 
-    In a ``world`` each rank scores its ``DatasetShard`` of the val set
-    and the integer [C, C] matrices are summed over the world by one
-    all-reduce that every rank enters (``em_adapt_tpu/cli.py:413-500``):
-    the sum is the whole set's matrix bit for bit, the same on every rank,
-    and so is "best"."""
+    In a ``world`` laid out by ``plan`` the val set is split over the
+    data × space ranks (``DatasetShard`` number ``data index · space +
+    space index``), each image evaluated whole; the model ranks of one
+    data and space index evaluate the same images together, since their
+    forward holds the model axis's collectives. The integer [C, C]
+    matrices are summed by one all-reduce over the data × space ranks of
+    each model index (``em_adapt_tpu/cli.py:413-500``), so each image
+    counts once: the sum is the whole set's matrix bit for bit, the same
+    on every rank, and so is "best"."""
     if args.synthetic:
         n_val = args.synthetic_val if args.synthetic_val is not None else max(args.synthetic // 4, 2)
         if args.synthetic_learnable:
@@ -410,7 +421,9 @@ def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None
     else:
         val = VOCSegmentation(cfg.data, "val")
     if world is not None:
-        val = DatasetShard(val, world.rank, world.size)
+        plan = plan or make_plan(cfg.mesh, world)
+        val = DatasetShard(val, plan.data_index * plan.num_space_shards + plan.space_index,
+                           plan.ddp_size)
 
     def eval_fn(state) -> float:
         if cfg.train.eval_protocol == "voc":
@@ -422,7 +435,7 @@ def make_eval_fn(cfg: ExperimentConfig, args, device, world: World | None = None
                   if cfg.data.prefetch > 0 else contextlib.nullcontext(batches)) as batches:
                 confusion = Evaluator(cfg, state.model).confusion_fixed(batches)
         if world is not None:
-            confusion = world.sum_host(confusion)
+            confusion = world.sum_host(confusion, plan)
         return miou_from_confusion(confusion)[0]
 
     return eval_fn
@@ -446,8 +459,12 @@ def train_presets() -> dict[str, tuple[str, ...]]:
       masked cross-entropy normalizes per batch, and ``train`` warns);
     * "gpu-highres": 513x513, bf16, per-block remat, the uint8 wire (the
       65x65 score map: K1 over a cluster of CTAs an image). The JAX
-      preset's spatial mesh axis comes with spatial partitioning (ROADMAP
-      item 11c).
+      preset also sets ``mesh.axes=(("data",-1),("space",3))``, which
+      fails on one device (1 is not divisible by 3); one H100 holds the
+      513² step whole, so this preset leaves the mesh alone and runs on
+      one card. ``--multihost`` with ``mesh.axes=(("data",-1),("space",3))``
+      gives the JAX layout: the image's rows over three processes
+      (``parallel/spatial.py``).
 
     The JAX presets' ``train.macro_steps`` and ``train.rng_impl`` are left
     out: the port accepts them and does not use them (``config.py``)."""
@@ -530,9 +547,12 @@ def _train(args, cfg: ExperimentConfig, world: World | None) -> int:
     # The LR schedule counts epochs of len(data) // batch microbatch steps.
     trainer = Trainer(cfg, device=args.device,
                       steps_per_epoch=max(len(data) // cfg.train.batch_size, 1), world=world)
+    plan = trainer.plan
     if world is not None:
-        say(f"world: {world.size} processes, rank 0 on {world.device}, global batch "
-            f"{cfg.train.batch_size} ({cfg.train.batch_size // world.size} a process)")
+        say(f"world: {world.size} processes as data {plan.num_data_shards} x space "
+            f"{plan.num_space_shards} x model {plan.num_model_shards}, rank 0 on {world.device}, "
+            f"global batch {cfg.train.batch_size} ({cfg.train.batch_size // plan.num_data_shards} "
+            f"a data index)")
     state = trainer.init_state()
     if args.warm_start:
         wdir, wstep = parse_warm_start(args.warm_start)
@@ -549,12 +569,12 @@ def _train(args, cfg: ExperimentConfig, world: World | None) -> int:
     elif latest is not None:
         state = trainer.restore_state("norm", latest)
         say(f"resumed from step {latest}")
-    eval_fn = (make_eval_fn(cfg, args, trainer.device, world)
+    eval_fn = (make_eval_fn(cfg, args, trainer.device, world, plan)
                if cfg.train.eval_every_steps else None)
     logger = MetricLogger(args.log_jsonl) if main_rank else None
     log_fn = logger
     if cfg.train.calibrate_estep:
-        local_batch = cfg.train.batch_size // (world.size if world is not None else 1)
+        local_batch = cfg.train.batch_size // plan.num_data_shards
         estep_us = round(measure_estep_us_per_image(cfg.model, cfg.estep, local_batch,
                                                     trainer.device), 1)
         say(f"estep calibration: {estep_us} us/image (impl={cfg.estep.impl}, "
@@ -566,11 +586,16 @@ def _train(args, cfg: ExperimentConfig, world: World | None) -> int:
     # One batch a microbatch step: the restored step is the stream position.
     batches = batch_iterator(data, cfg.data, batch_size=cfg.train.batch_size, seed=cfg.train.seed,
                              start_step=state.step,
-                             process_shard=None if world is None else (world.rank, world.size))
+                             process_shard=None if world is None else (plan.data_index,
+                                                                       plan.num_data_shards),
+                             row_shard=(plan.space_index, plan.num_space_shards))
+    profile_dir = args.profile_dir
+    if profile_dir is not None and world is not None and world.size > 1:
+        profile_dir = os.path.join(profile_dir, f"rank{world.rank}")
     try:
-        with trace_steps(args.profile_dir, trainer.device) as step_hook:
-            trainer.fit(state, batches, num_steps=args.steps, log_fn=log_fn, eval_fn=eval_fn,
-                        step_hook=step_hook)
+        with trace_steps(profile_dir, trainer.device) as step_hook:
+            records = trainer.fit(state, batches, num_steps=args.steps, log_fn=log_fn,
+                                  eval_fn=eval_fn, step_hook=step_hook)
     finally:
         batches.close()  # fit has closed its prefetcher, so no thread is inside the generator
         if logger is not None:
@@ -580,6 +605,12 @@ def _train(args, cfg: ExperimentConfig, world: World | None) -> int:
     trainer.checkpointer.close()
     if world is not None:
         world.check_same(state.step, "the step training ended at")
+        launches = [(r["estep_launches"], r["block1_fwd_launches"], r["block1_bwd_launches"])
+                    for r in records]
+        peak = (f"{torch.cuda.max_memory_allocated(trainer.device)} B"
+                if trainer.device.type == "cuda" else "not measured (no card)")
+        print(f"rank {world.rank}: K1/K2/K3 launches a step {launches}; peak device memory {peak}",
+              flush=True)
     say(f"done at step {state.step}")
     return 0
 
@@ -622,7 +653,8 @@ def main(argv: list[str] | None = None) -> int:
                             "one batch-30 step; not update-identical under semi-supervision), "
                             "'gpu-highres' (513x513, bf16, remat, uint8 wire)")
     train.add_argument("--profile-dir", default=None, metavar="DIR",
-                       help="write a torch.profiler trace of the first steps to DIR")
+                       help="write a torch.profiler trace of the first steps to DIR (in a "
+                            "world of several processes, rank R's to DIR/rankR)")
     train.add_argument("--deterministic", action="store_true",
                        help="cuDNN's deterministic algorithms, no autotuning (before the model "
                             "is built): runs in separate processes then sum alike")

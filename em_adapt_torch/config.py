@@ -121,10 +121,10 @@ class MeshConfig:
     """The layout of the devices (``em_adapt_tpu/config.py:176-185``):
     (axis name, size) pairs, -1 taking all the devices that the fixed axes
     leave (``parallel/mesh.py::resolve_axis_sizes``). The port runs one
-    process per card, so the data axis is the number of processes
-    (``train --multihost``). A ``space`` axis above 1 (spatial
-    partitioning) and a ``model`` axis above 1 (tensor parallelism of
-    fc6/fc7) are not ported (ROADMAP.md Queue 1 items 11c and 11b)."""
+    process per card (``train --multihost``): the processes are laid out
+    row-major in the order of ``axes`` over the data axis (the batch), the
+    space axis (the image's rows, ``parallel/spatial.py``) and a ``model``
+    axis (fc6/fc7 tensor parallelism, ``parallel/tensor.py``)."""
 
     axes: tuple[tuple[str, int], ...] = (("data", -1), ("space", 1))
     data_axis: str = "data"
@@ -294,20 +294,13 @@ def check_supported(cfg: ExperimentConfig, mode: str = "train") -> None:
 
 
 def check_mesh(mesh: MeshConfig) -> None:
-    """Raise for a mesh axis the port does not run: a space axis other
-    than 1 (ROADMAP.md Queue 1 item 11c), a ``model`` axis other than 1
-    (item 11b), an axis of another name, or a size below -1 or of 0."""
+    """Raise for a mesh axis of another name than the data, space and
+    ``model`` axes, or of a size below -1 or of 0. Whether the image's
+    height divides over the space axis is checked where the input size is
+    first seen (``parallel/spatial.py::check_image_rows``)."""
     for name, size in mesh.axes:
         if size == 0 or size < -1:
             raise ValueError(f"mesh.axes: axis {name!r} has size {size}; expected -1 or >= 1")
-        if name == mesh.space_axis and size != 1:
-            raise ValueError(
-                f"mesh.axes: a {name!r} axis of {size} (spatial partitioning) is not ported "
-                "(ROADMAP.md Queue 1 item 11c); set it to 1")
-        if name == "model" and size != 1:
-            raise ValueError(
-                f"mesh.axes: a 'model' axis of {size} (tensor parallelism of fc6/fc7) is not "
-                "ported (ROADMAP.md Queue 1 item 11b); set it to 1")
         if name not in (mesh.data_axis, mesh.space_axis, "model"):
             raise ValueError(f"mesh.axes: unknown axis {name!r}")
 

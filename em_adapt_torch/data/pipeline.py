@@ -26,6 +26,7 @@ import numpy as np
 from em_adapt_torch.config import DataConfig
 from em_adapt_torch.data.augment import augment_train, preprocess_eval, resize_nearest_np
 from em_adapt_torch.data.voc import read_split, rgb_mask_to_index
+from em_adapt_torch.parallel.spatial import check_image_rows
 
 
 class VOCSegmentation:
@@ -181,6 +182,7 @@ def batch_iterator(
     num_workers: int | None = None,
     start_step: int = 0,
     process_shard: tuple[int, int] | None = None,
+    row_shard: tuple[int, int] | None = None,
 ) -> Iterator[dict]:
     """Yield batches {"image" [B,H,W,3], "label" [B,H,W,1], "id" list},
     and "is_strong" [B] bool whenever the dataset flags any image strong
@@ -201,6 +203,11 @@ def batch_iterator(
     process draws the same permutation and global batches and keeps rows
     ``[pid·B/n, (pid+1)·B/n)`` of each (pad rows included), so the n
     processes' batches together are the one-process run's.
+
+    ``row_shard=(s, n)`` (a space axis of n, ``parallel/spatial.py``):
+    every image keeps its rows ``[s·H/n, (s+1)·H/n)``, sliced here on the
+    host before any copy to the card; an H that does not divide raises.
+    The label stays whole (a host-shrunk 41-row label under n = 3 too).
     """
     n = len(dataset)
     num_workers = num_workers if num_workers is not None else cfg.num_workers
@@ -279,6 +286,12 @@ def batch_iterator(
                 }
                 if include_strong:
                     out["is_strong"] = np.array(flags)
+                if row_shard is not None and row_shard[1] > 1:
+                    s, n_rows = row_shard
+                    h = out["image"].shape[1]
+                    check_image_rows(h, n_rows)
+                    out["image"] = np.ascontiguousarray(
+                        out["image"][:, s * h // n_rows:(s + 1) * h // n_rows])
                 yield out
             epoch += 1
     finally:

@@ -21,6 +21,14 @@ faster (:meth:`DeepLabLargeFOV._block1_mode`). ``remat=True`` recomputes
 each VGG block's activations in the backward
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does (deeplab.py:
 338-347).
+
+On a mesh of processes (``plan``, ``parallel/mesh.py::MeshPlan``) the
+module holds this rank's part: under a ``model`` axis of n, fc6's
+``cout/n`` output channels and fc7's ``cin/n`` input channels
+(``parallel/tensor.py``); with ``strip=True`` (a ``space`` axis) the input
+is this rank's rows of the image, every conv and pool runs on row strips
+with halo exchanges (``parallel/spatial.py``), and the logits are this
+rank's rows of the score map.
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ from em_adapt_torch.ops.block1 import block1_fused, block1_supported
 from em_adapt_torch.ops.conv import conv2d_same
 from em_adapt_torch.ops.pooling import max_pool_same
 from em_adapt_torch.ops.resize import resize_bilinear_tf
+from em_adapt_torch.parallel.mesh import MeshPlan
+from em_adapt_torch.parallel.spatial import conv_rows, pool_rows, row_split
+from em_adapt_torch.parallel.tensor import copy_to_model, reduce_from_model, shard_params
 
 # (name, kh, kw, in_ch, out_ch, atrous_rate), reference deeplab.py:133-141.
 VGG_CONV_SPECS: tuple[tuple[str, int, int, int, int, int], ...] = (
@@ -67,6 +78,14 @@ POOLS: dict[str, int] = {
     "conv4_3": 1,
     "conv5_3": 1,
 }
+
+
+def score_map_rows(h: int) -> int:
+    """The score map's rows (or columns) for an input of ``h``: ceil(h/s)
+    through each pool's stride s (output stride 8: 321 -> 41, 513 -> 65)."""
+    for stride in POOLS.values():
+        h = -(-h // stride)
+    return h
 
 
 def vgg_conv_specs(cfg: ModelConfig) -> tuple[tuple[str, int, int, int, int, int], ...]:
@@ -145,15 +164,18 @@ def init_params(
     return params
 
 
-def build_model(cfg: ModelConfig, seed: int, device: torch.device) -> "DeepLabLargeFOV":
+def build_model(cfg: ModelConfig, seed: int, device: torch.device,
+                plan: MeshPlan | None = None) -> "DeepLabLargeFOV":
     """The model ``cfg.name`` names, with fresh parameters on ``device``:
     the Caffe init.npy of ``cfg.init_model_path`` or the
     ``cfg.init_scheme`` draw, made on the CPU from ``seed`` so that a seed
-    gives the same weights everywhere."""
+    gives the same weights everywhere. On a mesh (``plan``) every rank
+    draws the whole model and keeps its part, so a world starts from the
+    weights that one process starts from."""
     cls = get_model(cfg.name)
     init_model = load_caffe_init(cfg.init_model_path) if cfg.init_model_path else None
     params = init_params(torch.Generator().manual_seed(seed), cfg, init_model)
-    return cls(cfg).load_params(params).to(device)
+    return cls(cfg, plan=plan).load_params(params).to(device)
 
 
 def load_caffe_init(path: str) -> dict[str, Any]:
@@ -169,18 +191,33 @@ def dropout(
     generator: torch.Generator | None = None,
     mask: torch.Tensor | None = None,
     shard: tuple[int, int] = (0, 1),
+    channels: tuple[int, int, int] | None = None,
+    rows: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """TF1 ``tf.nn.dropout``: keep with probability ``keep_prob`` and scale
     kept values by 1/keep_prob. ``mask`` (bool, x's shape) injects the keep
-    pattern; otherwise it is drawn from ``generator``: with ``shard=(rank,
-    n)`` the mask of the whole world's batch (n times x's rows) is drawn
-    and rows ``[rank·B, (rank+1)·B)`` kept, so that n processes with one
+    pattern; otherwise it is drawn from ``generator`` as the mask of the
+    whole world's batch at the whole width and height, of which this rank
+    keeps its slices: with ``shard=(d, n)`` (the data group: n data
+    indices) the images ``[d·B, (d+1)·B)`` of n times x's; with
+    ``channels=(lo, hi, c)`` (the model group: fc6's channels on this
+    model rank) channels ``[lo, hi)`` of c; with ``rows=(lo, hi, h)`` (the
+    space group) rows ``[lo, hi)`` of h. So the ranks of a world with one
     seed draw what one process draws for their batches together."""
     if mask is None:
-        rank, n = shard
+        d, n = shard
         b = x.shape[0]
-        mask = torch.rand((b * n, *x.shape[1:]), generator=generator,
-                          device=x.device)[rank * b:(rank + 1) * b] < keep_prob
+        shape = [b * n, *x.shape[1:]]
+        if channels is not None:
+            shape[1] = channels[2]
+        if rows is not None:
+            shape[2] = rows[2]
+        mask = torch.rand(shape, generator=generator, device=x.device)[d * b:(d + 1) * b]
+        if channels is not None:
+            mask = mask[:, channels[0]:channels[1]]
+        if rows is not None:
+            mask = mask[:, :, rows[0]:rows[1]]
+        mask = mask < keep_prob
     return torch.where(mask, x / keep_prob, torch.zeros_like(x))
 
 
@@ -200,24 +237,38 @@ class DeepLabLargeFOV(nn.Module):
     """``model(x, train=..., generator=...)`` -> NHWC float32 logits.
 
     Built with empty parameters; :meth:`load_params` (or
-    ``load_state_dict(from_jax_params(...))``) fills them.
+    ``load_state_dict(from_jax_params(...))``) fills them. ``plan``: this
+    rank's place on a mesh of processes (default: one process).
     """
 
-    def __init__(self, cfg: ModelConfig = ModelConfig()):
+    def __init__(self, cfg: ModelConfig = ModelConfig(), plan: MeshPlan | None = None):
         super().__init__()
         self.cfg = cfg
-        self.layers = nn.ModuleDict(
-            {name: _Conv(kh, kw, cin, cout, rate) for name, kh, kw, cin, cout, rate in layer_specs(cfg)}
-        )
+        self.plan = plan or MeshPlan()
+        n = self.plan.num_model_shards
+        if cfg.fc6_channels % n:
+            raise ValueError(f"model.fc6_channels={cfg.fc6_channels} does not divide over a "
+                             f"model axis of {n}")
+        layers = {}
+        for name, kh, kw, cin, cout, rate in layer_specs(cfg):
+            if name == "fc6":
+                cout //= n
+            elif name == "fc7":
+                cin //= n
+            layers[name] = _Conv(kh, kw, cin, cout, rate)
+        self.layers = nn.ModuleDict(layers)
 
     def load_params(self, params: dict[str, dict[str, Any]]) -> "DeepLabLargeFOV":
-        """Copy ``{layer: {"w": HWIO, "b": [C]}}`` into the module."""
+        """Copy ``{layer: {"w": HWIO, "b": [C]}}``, the whole model, into the
+        module (this model rank's slices of it on a model axis)."""
         from em_adapt_torch.models.convert import from_jax_params
 
-        self.load_state_dict(from_jax_params(params))
+        plan = self.plan
+        self.load_state_dict(from_jax_params(
+            shard_params(params, plan.model_index, plan.num_model_shards)))
         return self
 
-    def _block1_mode(self, h: int, w: int, device: torch.device) -> str:
+    def _block1_mode(self, h: int, w: int, device: torch.device, strip: bool = False) -> str:
         """"pallas" (the fused block, K2 and K3 on the card) or "xla" (the
         conv path). "auto" picks the fused block wherever it applies: on
         the card, in bf16, at full width, on a square odd input; elsewhere,
@@ -228,10 +279,16 @@ class DeepLabLargeFOV(nn.Module):
         K2+K3 2.280 against 2.613 ms at B=6 and 10.908 against 11.342 ms at
         the folded B=30. "pallas" forces it and raises where it cannot
         run, by the JAX package's rules (deeplab.py:224-269): a square odd
-        input, and bf16 on the card."""
+        input, and bf16 on the card. On row strips (``strip``, a space
+        axis) "auto" takes the conv path, as the JAX package takes XLA
+        there, and "pallas" raises: the fused kernel has no halo exchange."""
         impl = self.cfg.block1_impl
-        if impl == "xla":
+        if impl == "xla" or (strip and impl == "auto"):
             return "xla"
+        if strip and impl == "pallas":
+            raise ValueError(
+                "model.block1_impl='pallas' cannot run on a space axis above 1: the fused block 1 "
+                "has no halo exchange between row strips; use 'auto' or 'xla'")
         if impl == "auto":
             fits = (device.type == "cuda" and self.cfg.compute_dtype == "bfloat16"
                     and self.layers["conv1_1"].weight.shape[0] == 64 and block1_supported(h, w))
@@ -250,12 +307,26 @@ class DeepLabLargeFOV(nn.Module):
             )
         return "pallas"
 
-    def _block(self, h: torch.Tensor, names: tuple[str, ...], cdt) -> torch.Tensor:
-        """One VGG block: its convs with ReLU, then its pool."""
+    def _conv(self, name: str, h: torch.Tensor, cdt, rows: int | None) -> torch.Tensor:
+        """Layer ``name`` on ``h``: the whole tensor, or this rank's rows of
+        a ``rows``-row one."""
+        layer = self.layers[name]
+        if rows is None:
+            return layer(h, cdt)
+        return conv_rows(h, layer.weight, layer.bias, rate=layer.rate, compute_dtype=cdt,
+                         plan=self.plan, h=rows)
+
+    def _block(self, h: torch.Tensor, names: tuple[str, ...], cdt,
+               rows: int | None = None) -> torch.Tensor:
+        """One VGG block: its convs with ReLU, then its pool (on row strips
+        of a ``rows``-row input where ``rows`` is given)."""
         for name in names:
-            h = F.relu(self.layers[name](h, cdt), inplace=True)
+            h = F.relu(self._conv(name, h, cdt, rows), inplace=True)
             if name in POOLS:
-                h = max_pool_same(h, 3, POOLS[name])
+                if rows is None:
+                    h = max_pool_same(h, 3, POOLS[name])
+                else:
+                    h, _ = pool_rows(h, 3, POOLS[name], plan=self.plan, h=rows)
         return h
 
     def forward(
@@ -266,14 +337,19 @@ class DeepLabLargeFOV(nn.Module):
         generator: torch.Generator | None = None,
         masks: tuple[torch.Tensor, torch.Tensor] | None = None,
         shard: tuple[int, int] = (0, 1),
+        strip: bool = False,
     ) -> torch.Tensor:
         """x [B,H,W,3]: float is preprocessed (BGR, mean-subtracted); uint8
         is raw RGB and is normalized here, on x's device. In training,
-        dropout masks come from ``masks`` (two bool NCHW tensors, after
-        relu6 and relu7) or are drawn from ``generator``, as the rows
-        ``shard`` (rank, world size) names of the world batch's masks
-        (:func:`dropout`).
-        Returns f32 logits [B, ceil(H/8), ceil(W/8), C] (NHWC view)."""
+        dropout masks come from ``masks`` (two bool NCHW tensors of this
+        rank's part, after relu6 and relu7) or are drawn from ``generator``
+        as this rank's slices of the world batch's masks (:func:`dropout`):
+        the images ``shard`` (data index, data shards) names, and on a mesh
+        its channels and rows.
+        Returns f32 logits [B, ceil(H/8), ceil(W/8), C] (NHWC view). With
+        ``strip`` on a space axis of n, x holds this rank's H/n rows of the
+        image and the logits its rows of the score map
+        (``parallel/spatial.py::row_split``)."""
         if train and masks is None and generator is None:
             raise ValueError("train=True needs a dropout generator or masks")
         cdt = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
@@ -281,7 +357,10 @@ class DeepLabLargeFOV(nn.Module):
         if cdt is not None:
             h = h.to(cdt)
         names = [spec[0] for spec in vgg_conv_specs(self.cfg)]
-        if self._block1_mode(h.shape[2], h.shape[3], h.device) == "pallas":
+        plan = self.plan
+        strip = strip and plan.num_space_shards > 1
+        rows = h.shape[2] * plan.num_space_shards if strip else None
+        if self._block1_mode(h.shape[2], h.shape[3], h.device, strip) == "pallas":
             c1, c2 = self.layers["conv1_1"], self.layers["conv1_2"]
             h = block1_fused(h, c1.weight, c1.bias, c2.weight, c2.bias)
             names = names[2:]
@@ -290,15 +369,31 @@ class DeepLabLargeFOV(nn.Module):
             end = next(i for i, name in enumerate(names) if name in POOLS) + 1
             block, names = tuple(names[:end]), names[end:]
             if remat:
-                h = checkpoint(self._block, h, block, cdt, use_reentrant=False)
+                h = checkpoint(self._block, h, block, cdt, rows, use_reentrant=False)
             else:
-                h = self._block(h, block, cdt)
+                h = self._block(h, block, cdt, rows)
+            if rows is not None:
+                rows = -(-rows // POOLS[block[-1]])
         keep = self.cfg.dropout_keep_prob
-        for i, name in enumerate(("fc6", "fc7")):
-            h = F.relu(self.layers[name](h, cdt), inplace=True)
-            if train:
-                h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[i],
-                            shard=shard)
+        n = plan.num_model_shards
+        own = None if rows is None else (*row_split(rows, plan.num_space_shards)[plan.space_index],
+                                         rows)
+        c6, m = self.cfg.fc6_channels, plan.model_index
+        channels = None if n == 1 else (m * c6 // n, (m + 1) * c6 // n, c6)
+        h = F.relu(self._conv("fc6", copy_to_model(h, plan), cdt, rows), inplace=True)
+        if train:
+            h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[0],
+                        shard=shard, channels=channels, rows=own)
+        if n > 1:  # row-parallel fc7: the model group's partial sums, then the whole bias
+            fc7 = self.layers["fc7"]
+            h = reduce_from_model(conv2d_same(h, fc7.weight, compute_dtype=cdt), plan)
+            h = h + fc7.bias.to(h.dtype)[:, None, None]
+        else:
+            h = self.layers["fc7"](h, cdt)
+        h = F.relu(h, inplace=True)
+        if train:
+            h = dropout(h, keep, generator=generator, mask=None if masks is None else masks[1],
+                        shard=shard, rows=own)
         return self.layers["fc8"](h, cdt).float().permute(0, 2, 3, 1)
 
     def predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -309,5 +404,14 @@ class DeepLabLargeFOV(nn.Module):
 
     def weight_l2(self) -> torch.Tensor:
         """Sum of 0.5*||w||^2 over conv weights only, biases excluded
-        (tf.nn.l2_loss over the weights, reference deeplab.py:184)."""
-        return sum(0.5 * layer.weight.square().sum() for layer in self.layers.values())
+        (tf.nn.l2_loss over the weights, reference deeplab.py:184). On a
+        model axis the sharded weights' sums are added over the model
+        group for the value (the whole model's), while each shard's
+        gradient stays its own (``parallel/tensor.py::reduce_from_model``)."""
+        if self.plan.num_model_shards == 1:
+            return sum(0.5 * layer.weight.square().sum() for layer in self.layers.values())
+        sharded = ("fc6", "fc7")
+        whole = sum(0.5 * layer.weight.square().sum() for name, layer in self.layers.items()
+                    if name not in sharded)
+        parts = sum(0.5 * self.layers[name].weight.square().sum() for name in sharded)
+        return whole + reduce_from_model(parts, self.plan)

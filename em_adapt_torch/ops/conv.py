@@ -27,6 +27,7 @@ def conv2d_same(
     *,
     rate: int = 1,
     compute_dtype: torch.dtype | None = None,
+    h_pad: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Stride-1 SAME conv. x [B,Cin,H,W], w [Cout,Cin,kh,kw], atrous ``rate``.
 
@@ -39,12 +40,19 @@ def conv2d_same(
     the conv output is rounded to x's incoming dtype, then the bias,
     rounded to that dtype, is added in it. The bias stays out of
     ``F.conv2d``, where cuDNN would add it in f32 before the rounding.
+
+    ``h_pad`` (top, bottom) replaces the SAME padding of H: a row strip
+    whose halo rows are already in ``x`` (``parallel/spatial.py``) pads
+    only at the image's true edges.
     """
     if compute_dtype is not None:
         orig = x.dtype
-        y = conv2d_same(x.to(compute_dtype), w.to(compute_dtype), rate=rate).to(orig)
+        y = conv2d_same(x.to(compute_dtype), w.to(compute_dtype), rate=rate,
+                        h_pad=h_pad).to(orig)
         return y if b is None else y + b.to(orig)[:, None, None]
     (top, bottom), (left, right) = (same_padding(k, rate) for k in w.shape[2:])
+    if h_pad is not None:
+        top, bottom = h_pad
     if top == bottom and left == right:
         return F.conv2d(x, w, b, padding=(top, left), dilation=rate)
     return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, dilation=rate)

@@ -37,7 +37,7 @@ import torch
 from em_adapt_torch.config import EStepConfig
 from em_adapt_torch.ops.estep_kernel import estep_kernel
 from em_adapt_torch.ops.estep_native import estep_native
-from em_adapt_torch.parallel.mesh import current_shard, global_max
+from em_adapt_torch.parallel.mesh import MeshPlan, global_max
 
 
 def derive_tags(label: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -223,7 +223,8 @@ def estep_bisect(
 
 
 def estep_labels(
-    scores: torch.Tensor, label: torch.Tensor, orders: torch.Tensor, cfg: EStepConfig
+    scores: torch.Tensor, label: torch.Tensor, orders: torch.Tensor, cfg: EStepConfig,
+    plan: MeshPlan | None = None,
 ) -> torch.Tensor:
     """Weak label map [B, H, W] int64 = argmax of the biased score map.
 
@@ -236,15 +237,20 @@ def estep_labels(
 
     In a world of several processes the batch max is the world's
     (``parallel/mesh.py::global_max``), for every method and impl but
-    "native", which raises there: the host library takes its own batch's
-    max, and the JAX package's native path has no sharded form either.
+    "native", which raises where the batch is split over processes (a
+    data × space of ``plan`` above 1; no plan is one process):
+    the host library takes its own batch's max, and the JAX package's
+    native path has no sharded form either. Each rank passes its data
+    shard's whole score map (on a space axis, the map gathered over the
+    space group; on a model axis, the same map on every model rank).
     """
     if cfg.method not in ("adaptive", "fixed"):
         raise ValueError(f"estep.method={cfg.method!r}: expected 'adaptive' or 'fixed'")
     if cfg.impl not in ("auto", "pallas", "jax", "native"):
         raise ValueError(
             f"estep.impl={cfg.impl!r}: expected 'auto', 'pallas', 'jax' or 'native'")
-    if cfg.impl == "native" and cfg.method == "adaptive" and current_shard()[1] > 1:
+    split = plan is not None and plan.ddp_size > 1
+    if cfg.impl == "native" and cfg.method == "adaptive" and split:
         raise ValueError(
             "estep.impl='native' cannot train in a world of several processes: the host "
             "library takes the batch max over its own process's images, where the E-step "

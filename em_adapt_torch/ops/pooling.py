@@ -22,9 +22,12 @@ def _same_pool_padding(n: int, window: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 1) -> torch.Tensor:
-    """[B,C,H,W] max pool, ``window`` x ``window`` SAME, like tf.nn.max_pool."""
-    top, bottom = _same_pool_padding(x.shape[-2], window, stride)
+def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 1,
+                  h_pad: tuple[int, int] | None = None) -> torch.Tensor:
+    """[B,C,H,W] max pool, ``window`` x ``window`` SAME, like tf.nn.max_pool.
+    ``h_pad`` (top, bottom) replaces the SAME padding of H (a row strip
+    with its halo, ``parallel/spatial.py``)."""
+    top, bottom = h_pad if h_pad is not None else _same_pool_padding(x.shape[-2], window, stride)
     left, right = _same_pool_padding(x.shape[-1], window, stride)
     if top == bottom and left == right and max(top, left) <= window // 2:
         # The pool's own padding is -inf and needs no padded copy.

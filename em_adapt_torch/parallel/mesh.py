@@ -1,26 +1,36 @@
-"""Data-parallel training over processes: one process per card.
+"""The mesh of processes: one process per card.
 
-The counterpart of the data axis of ``em_adapt_tpu/parallel/mesh.py``.
-The JAX package builds one mesh over every device and lets XLA insert the
-gradient psum; here each process drives one card (or the CPU), joins a
-``torch.distributed`` process group, and the model is wrapped in
-``DistributedDataParallel``: NCCL carries CUDA tensors between cards and
-gloo carries host tensors (``backend="cpu:gloo,cuda:nccl"``, one group for
-both); on the CPU, or where NCCL cannot run (two processes on one card),
-the group is gloo alone.
+The counterpart of ``em_adapt_tpu/parallel/mesh.py``. The JAX package
+builds one mesh over every device and lets XLA insert the collectives;
+here each process drives one card (or the CPU) and joins a
+``torch.distributed`` process group: NCCL carries CUDA tensors between
+cards and gloo carries host tensors (``backend="cpu:gloo,cuda:nccl"``, one
+group for both); on the CPU, or where NCCL cannot run (two processes on
+one card), the group is gloo alone.
 
 :func:`init_world` joins the group and returns the :class:`World`: the
-rank, the world size, the local rank and the device. The few links
-between images that the training step has are taken over the world here:
-the E-step's batch max (:func:`global_max`), the semi-supervised loss's
-valid-pixel count and the logged loss (:func:`all_sum`). Host-side
-agreements (a barrier, a broadcast of rank 0's value, the sum of eval's
-integer confusion matrices) go through gloo on host tensors, so they
-never wait behind the card's queue.
+rank, the world size, the local rank and the device. :func:`make_plan`
+lays the world out as the mesh ``data × space × model`` of
+``MeshConfig.axes`` (row-major in the order of the axes, as the JAX
+package reshapes its devices, so the last axis is the innermost) and
+returns the :class:`MeshPlan`: this rank's coordinate on each axis and a
+process group for each line of ranks that a collective runs over:
 
-The ``space`` axis (spatial partitioning) and the ``model`` axis (tensor
-parallelism of fc6/fc7) are not ported: ROADMAP.md Queue 1 items 11c and
-11b (``config.py::check_mesh`` raises for them).
+* ``data``: the batch's images (``Trainer``'s rows, ``DatasetShard``);
+* ``space``: the image's rows (``parallel/spatial.py``: the halo
+  exchanges of every conv and pool, the score map gathered for the
+  E-step);
+* ``model``: fc6's output channels and fc7's input channels
+  (``parallel/tensor.py``, the rules of :data:`TP_RULES`);
+* ``ddp``: the data × space ranks of one model index, whose gradients
+  ``DistributedDataParallel`` averages, and over which the loss's sums
+  (:func:`all_sum`) and eval's confusion counts are taken, so that a
+  model replica is counted once.
+
+The E-step's batch max (:func:`global_max`) is taken over the world: a
+max is the same however many replicas of a value enter it. Host-side
+agreements (a barrier, a broadcast of rank 0's value, the check that the
+ranks agree) run over the world too.
 """
 
 from __future__ import annotations
@@ -39,6 +49,17 @@ from em_adapt_torch.device import resolve_device
 #: Seconds a rendezvous or a collective may wait for the other processes
 #: before it raises (``train --dist-timeout``).
 DEFAULT_TIMEOUT = 1800.0
+
+#: Parameter leaves sharded over the ``model`` axis, (layer, leaf) -> the
+#: dimension split in the JAX package's HWIO layout
+#: (``em_adapt_tpu/parallel/mesh.py::TP_RULES``): fc6 column-parallel
+#: (its output channels and bias), fc7 row-parallel (its input channels);
+#: fc7's bias and fc8 stay whole on every rank.
+TP_RULES: dict[tuple[str, str], int] = {
+    ("fc6", "w"): 3,  # [kh,kw,cin,cout] -> split cout (column parallel)
+    ("fc6", "b"): 0,
+    ("fc7", "w"): 2,  # [1,1,cin,cout]  -> split cin  (row parallel)
+}
 
 
 def resolve_axis_sizes(cfg: MeshConfig, n_devices: int) -> dict[str, int]:
@@ -93,15 +114,19 @@ class World:
         dist.broadcast(t, 0)
         return float(t.item())
 
-    def sum_host(self, array: np.ndarray) -> np.ndarray:
-        """The elementwise sum over the world of an integer host array (an
-        int64 all-reduce: exact for any count)."""
+    def sum_host(self, array: np.ndarray, plan: "MeshPlan") -> np.ndarray:
+        """The elementwise sum of an integer host array (an int64
+        all-reduce: exact for any count) over ``plan``'s ``ddp`` group (the
+        data × space ranks of this rank's model index), where a model
+        replica enters once."""
         t = torch.from_numpy(np.ascontiguousarray(array, dtype=np.int64))
-        dist.all_reduce(t)
+        if plan.ddp_size > 1:
+            dist.all_reduce(t, group=plan.ddp_group)
         return t.numpy()
 
     def check_same(self, value: int, what: str) -> None:
-        """Raise unless every rank passes the same ``value``."""
+        """Raise unless every rank passes the same ``value`` (a max over the
+        world, which replicas do not change)."""
         t = torch.tensor([value, -value], dtype=torch.int64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         if t[0] != -t[1]:
@@ -185,28 +210,137 @@ def init_world(
     return World(rank=rank, size=size, local_rank=local_rank, device=dev)
 
 
-def current_shard() -> tuple[int, int]:
-    """(rank, world size) of this process's group; (0, 1) outside one."""
+#: The axes of the plan, in the names that :class:`MeshPlan` uses.
+AXES = ("data", "space", "model")
+
+
+def mesh_layout(cfg: MeshConfig, world_size: int, rank: int) -> tuple[dict[str, int],
+                                                                      dict[str, int]]:
+    """({axis: size}, {axis: this rank's coordinate}) over ``AXES`` for
+    ``world_size`` processes: ``cfg.axes`` resolved (raising unless they
+    use exactly the world) and ``rank`` unravelled row-major in their
+    order, as ``em_adapt_tpu/parallel/mesh.py::make_mesh`` reshapes the
+    devices; an axis that ``cfg`` leaves out has size 1."""
+    data_axis_size(cfg, world_size)
+    sizes = resolve_axis_sizes(cfg, world_size)
+    canon = {cfg.data_axis: "data", cfg.space_axis: "space", "model": "model"}
+    names = list(sizes)
+    coords = np.unravel_index(rank, [sizes[n] for n in names]) if names else ()
+    out_sizes = {a: 1 for a in AXES}
+    out_coords = {a: 0 for a in AXES}
+    for name, c in zip(names, coords):
+        out_sizes[canon[name]] = sizes[name]
+        out_coords[canon[name]] = int(c)
+    return out_sizes, out_coords
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshPlan:
+    """This rank's place in the mesh: ``sizes`` and ``coords`` over
+    :data:`AXES`, and ``groups``, the process group of each axis line
+    through this rank and of ``ddp`` (None where it is the whole world;
+    an axis line of this rank alone has none, the ``ddp`` line has one). The JAX package's
+    ``MeshPlan`` names: ``num_data_shards``, ``num_space_shards``,
+    ``num_model_shards``. ``MeshPlan()`` is one process."""
+
+    sizes: dict = dataclasses.field(default_factory=lambda: {a: 1 for a in AXES})
+    coords: dict = dataclasses.field(default_factory=lambda: {a: 0 for a in AXES})
+    groups: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_data_shards(self) -> int:
+        return self.sizes["data"]
+
+    @property
+    def num_space_shards(self) -> int:
+        return self.sizes["space"]
+
+    @property
+    def num_model_shards(self) -> int:
+        return self.sizes["model"]
+
+    @property
+    def data_index(self) -> int:
+        return self.coords["data"]
+
+    @property
+    def space_index(self) -> int:
+        return self.coords["space"]
+
+    @property
+    def model_index(self) -> int:
+        return self.coords["model"]
+
+    @property
+    def ddp_size(self) -> int:
+        """The ranks of one model replica's data-parallel average: data × space."""
+        return self.sizes["data"] * self.sizes["space"]
+
+    @property
+    def space_group(self):
+        return self.groups.get("space")
+
+    @property
+    def model_group(self):
+        return self.groups.get("model")
+
+    @property
+    def ddp_group(self):
+        return self.groups.get("ddp")
+
+
+def make_plan(cfg: MeshConfig, world: World | None) -> MeshPlan:
+    """The :class:`MeshPlan` of ``world`` laid out by ``cfg``
+    (:func:`mesh_layout`); ``MeshPlan()`` without a world. A collective:
+    every rank calls it, with the same ``cfg``, since each group is made
+    by ``dist.new_group``, which every rank enters in the same order."""
+    if world is None:
+        return MeshPlan()
+    sizes, coords = mesh_layout(cfg, world.size, world.rank)
+    every = [mesh_layout(cfg, world.size, r)[1] for r in range(world.size)]
+    groups = {}
+    for name, axes in (("data", ("data",)), ("space", ("space",)), ("model", ("model",)),
+                       ("ddp", ("data", "space"))):
+        n = int(np.prod([sizes[a] for a in axes]))
+        if n == world.size:
+            groups[name] = None  # the default group: the world
+            continue
+        if n == 1 and name != "ddp":  # DDP takes a group even of this rank alone
+            continue
+        lines: dict[tuple, list[int]] = {}
+        for r, c in enumerate(every):  # the ranks that differ only on ``axes``
+            lines.setdefault(tuple(c[a] for a in AXES if a not in axes), []).append(r)
+        for key in sorted(lines):  # every rank makes every line's group, in one order
+            group = dist.new_group(lines[key])
+            if world.rank in lines[key]:
+                groups[name] = group
+    return MeshPlan(sizes=sizes, coords=coords, groups=groups)
+
+
+def world_size() -> int:
+    """The number of processes of this process's group; 1 outside one."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+        return dist.get_world_size()
+    return 1
 
 
 def global_max(x: torch.Tensor) -> torch.Tensor:
     """The max of ``x`` over the whole world's batch, as a [1] float32
-    tensor on ``x``'s device (an all-reduce of the local max when the world
-    has more than one process)."""
+    tensor on ``x``'s device (an all-reduce of the local max over the
+    world when it has more than one process: replicas of a value over the
+    space or model axis leave a max as it is)."""
     m = x.detach().amax().to(torch.float32).reshape(1)
-    if current_shard()[1] > 1:
+    if world_size() > 1:
         dist.all_reduce(m, op=dist.ReduceOp.MAX)
     return m
 
 
-def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the world (``x`` itself in a world of one); no
-    gradient flows through the sum."""
-    if current_shard()[1] == 1:
+def all_sum(x: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+    """``x`` summed over ``plan``'s ``ddp`` group, the data × space ranks of
+    this rank's model index; ``x`` itself where that group is this rank
+    alone. No gradient flows through the sum."""
+    if plan.ddp_size == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=plan.ddp_group)
     return out

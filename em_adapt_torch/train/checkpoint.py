@@ -16,7 +16,12 @@ With ``async_save`` the state is copied to host memory inside
 :meth:`CheckpointManager.save` and written on a thread; :meth:`wait` joins
 it and raises what it raised. In a world of processes (``world``) rank 0
 copies and writes, and every rank waits on a barrier after each save; the
-ranks hold the same state, and each restores from the same file.
+ranks hold the same state, and each restores from the same file. On a
+model axis (the model's ``plan``) the file holds the whole model: the
+model ranks of rank 0 gather fc6's and fc7's shards and their optimizer
+slots before rank 0 copies them (``parallel/tensor.py::gather_state``),
+and every rank slices its part on restore, so a checkpoint restores into
+any layout.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import threading
 import torch
 
 from em_adapt_torch.config import CheckpointConfig
+from em_adapt_torch.parallel.tensor import gather_state, shard_params, shard_state
 from em_adapt_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -90,9 +96,14 @@ class CheckpointManager:
         is copied to host memory (async) or written (sync); the caller may
         then go on updating ``state`` in place. In a world only rank 0
         does so, and every rank then waits for the others."""
+        plan = getattr(getattr(state, "model", None), "plan", None)
+        sd = None
+        if (plan is not None and plan.num_model_shards > 1
+                and plan.data_index == plan.space_index == 0):
+            sd = gather_state(state.state_dict(), plan)  # rank 0's model group
         if self.world is None or self.world.is_main:
             self.wait()  # one write at a time, in order; raises a failed earlier one
-            host = to_host(state.state_dict())
+            host = to_host(sd if sd is not None else state.state_dict())
             self.last_saved[tag] = host["step"]
             if self.cfg.async_save:
                 self._writer = threading.Thread(target=self._write_recorded, args=(host, tag),
@@ -153,8 +164,11 @@ class CheckpointManager:
                           map_location="cpu", weights_only=True)
 
     def restore(self, state: TrainState, tag: str = "norm", step: int | None = None) -> TrainState:
-        """Load the full state of ``step`` (default: the latest) into ``state``."""
-        state.load_state_dict(self.load(tag, step))
+        """Load the full state of ``step`` (default: the latest) into
+        ``state`` (its part of it on a model axis)."""
+        sd = self.load(tag, step)
+        plan = getattr(getattr(state, "model", None), "plan", None)
+        state.load_state_dict(sd if plan is None else shard_state(sd, plan))
         return state
 
     def restore_params(self, model: torch.nn.Module, tag: str = "norm",
@@ -163,7 +177,10 @@ class CheckpointManager:
         checkpoint written under another optimizer config loads too).
         Returns the checkpoint's step."""
         sd = self.load(tag, step)
-        model.load_state_dict(sd["params"])
+        plan = getattr(model, "plan", None)
+        params = sd["params"] if plan is None else shard_params(
+            sd["params"], plan.model_index, plan.num_model_shards)
+        model.load_state_dict(params)
         return int(sd["step"])
 
     def close(self) -> None:

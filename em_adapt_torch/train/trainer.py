@@ -19,15 +19,20 @@ Randomness: one ``torch.Generator`` on the training device draws the
 dropout masks and the E-step's class orders. It gives other draws than
 the JAX package's keys; tests inject the same orders and masks instead.
 
-Several processes (``Trainer(world=...)``, ``parallel/mesh.py``): each
-trains on its rows of the global batch, its model wrapped in
-``DistributedDataParallel``, which averages every microbatch's gradients
-over the world in the backward pass (the JAX package's psum of each
-microbatch), so ``AccumulatingSGD`` folds in the world's mean gradient.
-Every process seeds the same generator, draws the world batch's dropout
-masks and keeps its rows, then the same class orders; the E-step's batch
-max, the semi-supervised loss's valid-pixel count and the logged loss are
-the world's. Rank 0 writes the checkpoints and ``best_metric.json``.
+Several processes (``Trainer(world=...)``, ``parallel/mesh.py``) are laid
+out as the mesh ``data × space × model`` of ``cfg.mesh``
+(:class:`~em_adapt_torch.parallel.mesh.MeshPlan`). Each holds its data
+index's images of the global batch, its rows of them on a space axis
+(``parallel/spatial.py``) and its part of fc6/fc7 on a model axis
+(``parallel/tensor.py``). Its model is wrapped in
+``DistributedDataParallel`` over the data × space ranks of its model
+index, which averages every microbatch's gradients in the backward pass
+(the JAX package's psum of each microbatch), so ``AccumulatingSGD`` folds
+in the world's mean gradient. Every process seeds the same generator,
+draws the world batch's dropout masks and keeps its slices, then the same
+class orders; the E-step's batch max, the loss's pixel counts and the
+logged loss are the world's. Rank 0 writes the checkpoints (the whole
+model, gathered over the model axis) and ``best_metric.json``.
 """
 
 from __future__ import annotations
@@ -48,26 +53,29 @@ import torch.nn.functional as F
 from em_adapt_torch.config import ExperimentConfig, check_supported
 from em_adapt_torch.data.pipeline import DevicePrefetcher
 from em_adapt_torch.device import resolve_device, set_precision
-from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model
+from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model, score_map_rows
 from em_adapt_torch.ops import block1 as k23
 from em_adapt_torch.ops import estep_kernel as k1
 from em_adapt_torch.ops.estep import estep_labels, make_class_orders
 from em_adapt_torch.ops.resize import resize_nearest_tf
-from em_adapt_torch.parallel.mesh import World, all_sum, current_shard, data_axis_size
+from em_adapt_torch.parallel.mesh import MeshPlan, World, all_sum, make_plan, mesh_layout
+from em_adapt_torch.parallel.spatial import check_image_rows, gather_rows, my_rows
 from em_adapt_torch.train.checkpoint import CheckpointManager
 from em_adapt_torch.train.optim import AccumulatingSGD, lr_at
 from em_adapt_torch.train.state import TrainState
 from em_adapt_torch.utils.failure import GracefulShutdown, LossWatchdog
 
 
-def config_hints(cfg: ExperimentConfig) -> list[str]:
+def config_hints(cfg: ExperimentConfig, plan: MeshPlan | None = None) -> list[str]:
     """The measured-knowledge hints that ``Trainer`` emits as
     ``UserWarning``s at construction: the EM-Fixed ones of
-    ``em_adapt_tpu/train/trainer.py::config_hints``, word for word. Its
-    spatial-mesh hint (inputs of 513² and more on a multi-device mesh
-    without spatial sharding) comes with spatial partitioning, ROADMAP.md
-    Queue 1 item 11c."""
+    ``em_adapt_tpu/train/trainer.py::config_hints``, word for word, and
+    its spatial-mesh hint (an input of 513² or more on a mesh of several
+    processes with space = 1) with the H100's own figures."""
     hints = []
+    n = 1 if plan is None else plan.ddp_size * plan.num_model_shards
+    if cfg.model.input_size[0] >= 513 and n > 1 and plan.num_space_shards == 1:
+        hints.append(SPATIAL_HINT.format(h=cfg.model.input_size[0], n=n))
     if cfg.estep.method == "fixed" and cfg.estep.fixed_bias_units == "logit":
         hints.append(
             "estep.method='fixed' with logit-unit biases: every "
@@ -94,6 +102,18 @@ def config_hints(cfg: ExperimentConfig) -> list[str]:
             "bg/fg biases in spread units"
         )
     return hints
+
+
+#: The spatial-mesh hint of :func:`config_hints`, with the range that
+#: chip_smoke.py's "mesh" read over its runs (NVIDIA H100 80GB HBM3 at
+#: 700 W; PERF.md §5 and §6).
+SPATIAL_HINT = (
+    "input {h}² with space=1 on a {n}-process mesh: spatial partitioning "
+    "(mesh.axes=((\"data\",-1),(\"space\",3))) cut each rank's peak memory at 513² to "
+    "1.65 GiB from 2.27-2.29 GiB in one process (bf16, batch 6, remat) on an H100, and "
+    "the step ran 7-27 times slower than in one process (three ranks on one card over "
+    "gloo, the halos through the host; chip_smoke.py \"mesh\"); one card holds this "
+    "input whole, so keep space=1 unless a card's memory runs out")
 
 
 def tag_classification_loss(
@@ -155,16 +175,30 @@ def loss_fn(
     advances as on an EM step and a run resumed inside or across the
     warm-up draws what the uninterrupted run draws.
 
-    In a world of n processes each holds B/n rows of the global batch.
-    DDP averages the gradients over the world, so a mean over the local
-    rows (the weak CE, the tag loss) gives the global mean; the
-    semi-supervised CE is divided by the world's valid-pixel count and
-    scaled by n, so that the world's mean of it is the global CE.
+    On a mesh (the model's ``plan``) each rank holds its data index's
+    images, and DDP averages the gradients over the data × space ranks of
+    its model index. Each rank's ``ce`` is scaled so that that average is
+    the global one: the weak CE over its images is their mean; on a space
+    axis the rank holds its rows of the score map, gathers the whole map
+    over the space group for the E-step (each space rank runs it on the
+    same map, so all get the same weak labels), and its CE is the sum over
+    its rows of the labels over the global pixel count, times data × space;
+    the semi-supervised CE is divided by the global valid-pixel count
+    (summed over data × space) and scaled by data × space. The tag loss
+    LSE-pools over every position, so a space rank takes it on the whole
+    map gathered with its gradient, of which each rank keeps its rows'
+    share; scaled by the space axis, the ranks' shares add up to the loss's
+    gradient. The logged values are the unscaled losses.
     """
     c = cfg.model.num_classes
-    shard = current_shard()
-    logits = model(batch["image"], train=True, generator=generator, masks=masks, shard=shard)
-    out_hw = (logits.shape[1], logits.shape[2])
+    plan = getattr(model, "module", model).plan
+    strip = plan.num_space_shards > 1
+    logits = model(batch["image"], train=True, generator=generator, masks=masks,
+                   shard=(plan.data_index, plan.num_data_shards), strip=strip)
+    rows = logits.shape[1]  # the score map's rows: the whole map's on a space axis
+    if strip:
+        rows = score_map_rows(batch["image"].shape[1] * plan.num_space_shards)
+    out_hw = (rows, logits.shape[2])
     label = batch["label"]
     if tuple(label.shape[1:3]) == out_hw:
         shrunk = label[..., 0]
@@ -173,32 +207,45 @@ def loss_fn(
     if orders is None:
         orders = make_class_orders(generator, cfg.estep.num_iter, c)
     weak = None
-    if step is not None and step < cfg.train.tag_warmup_steps:
-        ce = tag_classification_loss(logits, shrunk, c, cfg.train.tag_warmup_smoothing,
-                                     cfg.train.tag_warmup_pool_r)
+    # NCHW view of the logits (this rank's rows of them on a space axis).
+    nchw = logits.permute(0, 3, 1, 2)
+    warmup = step is not None and step < cfg.train.tag_warmup_steps
+    whole = gather_rows(nchw if warmup else nchw.detach(), plan, rows) if strip else nchw
+    n = plan.ddp_size
+    if warmup:
+        ce = logged = tag_classification_loss(whole.permute(0, 2, 3, 1), shrunk, c,
+                                              cfg.train.tag_warmup_smoothing,
+                                              cfg.train.tag_warmup_pool_r)
+        if strip:
+            ce = logged * plan.num_space_shards
     else:
-        weak = estep_labels(logits.detach(), shrunk, orders, cfg.estep)
-        # NCHW view of the logits. Every reduction below is a sum over the
-        # per-pixel losses: cross_entropy's own mean adds them with atomics
-        # on a CUDA card, so its value (not its gradient) would vary in the
-        # last bits from run to run, and a resumed run's losses must equal
-        # the uninterrupted run's.
-        nchw = logits.permute(0, 3, 1, 2)
+        weak = estep_labels(whole.detach().permute(0, 2, 3, 1), shrunk, orders, cfg.estep, plan)
+        target, mine = my_rows(weak, plan, 1), my_rows(shrunk, plan, 1)
+        # Every reduction below is a sum over the per-pixel losses:
+        # cross_entropy's own mean adds them with atomics on a CUDA card, so
+        # its value (not its gradient) would vary in the last bits from run
+        # to run, and a resumed run's losses must equal the uninterrupted
+        # run's.
         if cfg.semi_supervised and "is_strong" in batch:
             strong = batch["is_strong"].to(torch.bool)[:, None, None]
-            true_lab = shrunk.to(torch.int64)
-            target = torch.where(strong, true_lab, weak)
+            true_lab = mine.to(torch.int64)
+            target = torch.where(strong, true_lab, target)
             valid = torch.where(strong, true_lab < c, True)
             ce_map = F.cross_entropy(nchw, target.clamp(0, c - 1), reduction="none")
-            count = all_sum(valid.sum()).clamp(min=1)
+            count = all_sum(valid.sum(), plan).clamp(min=1)
             ce = (ce_map * valid).sum() / count
-            if shard[1] > 1:
-                ce = ce * shard[1]
+            if n > 1:
+                ce = ce * n
+        elif strip:
+            ce_map = F.cross_entropy(nchw, target, reduction="none")
+            ce = ce_map.sum() * (plan.num_space_shards / (nchw.shape[0] * rows * nchw.shape[3]))
         else:
-            ce = F.cross_entropy(nchw, weak, reduction="none").mean()
+            ce = F.cross_entropy(nchw, target, reduction="none").mean()
+        logged = ce
     l2 = getattr(model, "module", model).weight_l2()
     total = ce + cfg.optim.weight_decay * l2
-    return total, {"loss": total.detach(), "loss_norm": ce.detach(),
+    loss = total if logged is ce else logged + cfg.optim.weight_decay * l2
+    return total, {"loss": loss.detach(), "loss_norm": logged.detach(),
                    "loss_l2": l2.detach(), "weak": weak}
 
 
@@ -213,8 +260,9 @@ def train_step(
     """One microbatch step in place on ``state``. Returns the metrics and
     ``"updated"``: whether this step applied an accumulated update. In a
     world of processes the forward goes through ``state.ddp``, ``masks``
-    are this rank's rows, and "loss", "loss_norm" and "loss_l2" are the
-    world's means."""
+    are this rank's slices, and "loss", "loss_norm" and
+    "loss_l2" are the world's: the means over the data × space ranks of
+    this rank's model index."""
     for p in state.optimizer.params:
         p.grad = None
     total, metrics = loss_fn(
@@ -222,9 +270,11 @@ def train_step(
         generator=state.generator, orders=orders, masks=masks, step=state.step,
     )
     total.backward()
-    n = current_shard()[1]
+    plan = state.model.plan
+    n = plan.ddp_size
     if n > 1:
-        means = all_sum(torch.stack([metrics[k] for k in ("loss", "loss_norm", "loss_l2")])) / n
+        means = all_sum(torch.stack([metrics[k] for k in ("loss", "loss_norm", "loss_l2")]),
+                        plan) / n
         metrics.update(loss=means[0], loss_norm=means[1], loss_l2=means[2])
     metrics["updated"] = state.optimizer.step(state.step)
     state.step += 1
@@ -296,20 +346,25 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig, *, device=None, steps_per_epoch: int | None = None,
                  world: World | None = None):
         """``world`` (``parallel/mesh.py::init_world``): train as one rank of
-        several processes on ``world.device``, the model wrapped in DDP;
-        ``cfg.train.batch_size`` is then the global batch and must divide
-        over the world, and the mesh's data axis must be the world's size."""
+        several processes on ``world.device``, laid out by ``cfg.mesh``,
+        whose axes must use exactly the world; ``cfg.train.batch_size`` is
+        then the global batch and must divide over the data axis, and the
+        input's height over the space axis. The process groups of the
+        layout are made here (every rank constructs its Trainer alike)."""
         check_supported(cfg)
-        for hint in config_hints(cfg):
-            warnings.warn(hint, UserWarning, stacklevel=2)
         self.cfg = cfg
         self.world = world
+        self.plan = MeshPlan()
         if world is not None:
-            data_axis_size(cfg.mesh, world.size)
-            if cfg.train.batch_size % world.size:
+            sizes, _ = mesh_layout(cfg.mesh, world.size, world.rank)
+            check_image_rows(cfg.model.input_size[0], sizes["space"])
+            if cfg.train.batch_size % sizes["data"]:
                 raise ValueError(f"global train.batch_size {cfg.train.batch_size} not divisible "
-                                 f"by {world.size} processes")
+                                 f"by the data axis ({sizes['data']} of {world.size} processes)")
             device = world.device
+            self.plan = make_plan(cfg.mesh, world)
+        for hint in config_hints(cfg, self.plan):
+            warnings.warn(hint, UserWarning, stacklevel=2)
         self.device = resolve_device(device)
         set_precision(cfg.model.compute_dtype)
         self.steps_per_epoch = steps_per_epoch or 1
@@ -319,10 +374,12 @@ class Trainer:
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Fresh parameters (drawn on the CPU from ``seed``, so a seed gives
-        the same weights on every device), zeroed optimizer, step 0; in a
-        world, the model's DDP wrapper (a collective: every rank makes it)."""
+        the same weights on every device; on a model axis this rank's part
+        of them), zeroed optimizer, step 0; in a world, the model's DDP
+        wrapper over the data × space ranks of its model index (a
+        collective: every rank makes it)."""
         seed = self.cfg.train.seed if seed is None else seed
-        model = build_model(self.cfg.model, seed, self.device)
+        model = build_model(self.cfg.model, seed, self.device, plan=self.plan)
         model.train()
         names, params = zip(*model.named_parameters())
         optimizer = AccumulatingSGD(params, self.cfg.optim, self.steps_per_epoch, names=names)
@@ -333,7 +390,7 @@ class Trainer:
 
             ddp = DistributedDataParallel(
                 model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
-                find_unused_parameters=False)
+                find_unused_parameters=False, process_group=self.plan.ddp_group)
         return TrainState(model, optimizer, generator, ddp=ddp)
 
     def restore_state(self, tag: str = "norm", step: int | None = None) -> TrainState:

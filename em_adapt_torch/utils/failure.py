@@ -28,13 +28,13 @@ import threading
 import torch
 import torch.distributed as dist
 
-from em_adapt_torch.parallel.mesh import current_shard
+from em_adapt_torch.parallel.mesh import world_size
 
 
 def _world_max(value: int) -> int:
     """The max of ``value`` over the world (a gloo all-reduce of a host
     int64); ``value`` itself on one process."""
-    if current_shard()[1] == 1:
+    if world_size() == 1:
         return value
     t = torch.tensor([value], dtype=torch.int64)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)

@@ -198,8 +198,11 @@ def test_preset_resolves_to_its_overrides_and_user_overrides_win(preset):
 def test_presets_are_the_jax_presets_levers_on_the_card():
     """The port's presets carry the JAX presets' overrides (cli.py:249-286)
     but the TPU-only ones (fused dispatch, the hardware RNG) and the
-    spatial mesh axis (not ported: item 11c), with block 1 on K2/K3 in
-    gpu-perf."""
+    spatial mesh axis, with block 1 on K2/K3 in gpu-perf. gpu-highres
+    leaves ``mesh.axes`` out: JAX's space=3 fails on one device, and one
+    H100 holds the 513² step whole, so the preset runs on one card;
+    ``--multihost`` with ``mesh.axes=(("data",-1),("space",3))`` gives
+    JAX's layout."""
     from em_adapt_torch.__main__ import train_presets
     from em_adapt_tpu.cli import train_presets as jax_presets
 

@@ -52,6 +52,37 @@ def test_four_process_dryrun(tmp_path):
     assert norm_steps(str(tmp_path / "quad")) == [2]
 
 
+def test_space_model_mesh_train_matches_single_process(tmp_path):
+    """Four processes as (data 1, space 2, model 2) at 32x32 against one:
+    the image's rows split on the host, fc6/fc7 split over the model
+    axis; losses within rel 1e-5, the val mIoU (images split over data x
+    space, each evaluated whole by its model pair) within 1e-6, the world
+    line names the layout, "norm" holds the whole model, and each rank
+    reports its kernel launches a step (none on the CPU, where the plain
+    versions stand in) and that its peak was not measured."""
+    import torch
+
+    size = ["model.input_size=(32,32)", "data.input_size=(32,32)"]
+    mesh = ['mesh.axes=(("data",1),("space",2),("model",2))']
+    single = launch(1, 2, str(tmp_path / "single"), overrides_extra=size + EVAL)
+    multi = launch(4, 2, str(tmp_path / "mesh"), overrides_extra=size + EVAL + mesh)
+    want, got = loss_stream(single), loss_stream(multi)
+    assert set(want) == set(got) == {1, 2}
+    for step in (1, 2):
+        assert got[step] == pytest.approx(want[step], rel=1e-5), (want, got)
+    assert val_stream(multi)[2] == pytest.approx(val_stream(single)[2], abs=1e-6)
+    rank0 = (tmp_path / "mesh" / "proc0.log").read_text()
+    assert "world: 4 processes as data 1 x space 2 x model 2" in rank0
+    saved = torch.load(tmp_path / "mesh" / "saver" / "norm" / "2" / "state.pt",
+                       weights_only=True)
+    assert saved["params"]["layers.fc6.weight"].shape[0] == 8
+    assert saved["params"]["layers.fc7.weight"].shape[1] == 8
+    for r in range(4):
+        log = (tmp_path / "mesh" / f"proc{r}.log").read_text()
+        assert (f"rank {r}: K1/K2/K3 launches a step [(0, 0, 0), (0, 0, 0)]; peak device "
+                "memory not measured (no card)") in log
+
+
 @pytest.fixture(scope="module")
 def control(tmp_path_factory):
     """The uninterrupted two-process control run of the preemption tests."""

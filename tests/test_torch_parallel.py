@@ -4,16 +4,11 @@ gloo processes on the CPU against the port's one-process step and the JAX
 package's 8-device data-parallel step, the E-step's world batch max, the
 uniform preemption stop and the process-sharded confusion matrices.
 
-Each world is ``n`` fresh processes (:func:`run_world`) that join a gloo
-group through a FileStore under the test's ``tmp_path`` and run one of
-this module's workers on a pickled payload; the parent kills them after
-a timeout of their own, so a hung rendezvous fails one test."""
-
-import os
-import pickle
-import subprocess
-import sys
-import time
+Each world is ``n`` fresh processes (``tests/torch_world.py::run_world``)
+that join a gloo group through a FileStore under the test's ``tmp_path``
+and run one of this module's workers on a pickled payload; the parent
+kills them after a timeout of their own, so a hung rendezvous fails one
+test."""
 
 import numpy as np
 import pytest
@@ -23,64 +18,15 @@ torch = pytest.importorskip("torch")
 from em_adapt_torch import config as pcfg  # noqa: E402
 from em_adapt_torch.config import MeshConfig  # noqa: E402
 from em_adapt_torch.parallel.mesh import resolve_axis_sizes  # noqa: E402
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from tests.torch_world import run_world as _run_world  # noqa: E402
 
 
 # --- worlds of processes -------------------------------------------------
 
 
 def run_world(worker: str, n: int, payload, tmp_path, timeout: float = 120.0) -> list:
-    """Run ``worker(world, payload)`` (a function of this module, by name)
-    in ``n`` processes that form a gloo world on the CPU; return their
-    results by rank. Raises with the processes' output when one fails or
-    they are not done within ``timeout`` seconds (all are then killed)."""
-    work = tmp_path / f"world-{worker}-{time.monotonic_ns()}"
-    work.mkdir()
-    with open(work / "payload.pkl", "wb") as f:
-        pickle.dump(payload, f)
-    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "2"}
-    code = "from tests.test_torch_parallel import _child; _child()"
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(rank), str(n), str(work), worker],
-                              cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for rank in range(n)]
-    deadline = time.monotonic() + timeout
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1))[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            outs.append(p.communicate()[0])
-            raise AssertionError(f"world {worker} not done in {timeout} s:\n" + "\n".join(outs))
-    if any(p.returncode for p in procs):
-        raise AssertionError(f"world {worker}: exit codes {[p.returncode for p in procs]}\n"
-                             + "\n".join(outs))
-    results = []
-    for rank in range(n):
-        with open(work / f"out{rank}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    return results
-
-
-def _child() -> None:
-    """One process of :func:`run_world`: argv = rank, n, workdir, worker."""
-    rank, n, work, worker = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-    torch.set_num_threads(2)
-    from em_adapt_torch.parallel.mesh import init_world
-
-    with open(os.path.join(work, "payload.pkl"), "rb") as f:
-        payload = pickle.load(f)
-    world = init_world("cpu", coordinator=f"file://{work}/store", num_processes=n,
-                       process_id=rank, timeout=60)
-    try:
-        out = globals()[worker](world, payload)
-    finally:
-        world.close()
-    with open(os.path.join(work, f"out{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
+    """``tests/torch_world.py::run_world`` of a worker of this module."""
+    return _run_world("tests.test_torch_parallel", worker, n, payload, tmp_path, timeout)
 
 
 def rows(x, rank: int, n: int):
@@ -108,29 +54,46 @@ def test_resolve_axis_sizes_auto_size_and_errors_match_jax():
 
 
 def test_mesh_config_defaults_match_jax_and_unported_axes_raise():
-    """MeshConfig's defaults are the JAX package's; a space axis above 1
-    names item 11c, a model axis above 1 item 11b, and the data axis must
-    cover the world."""
+    """MeshConfig's defaults are the JAX package's; space and model axes
+    above 1 are accepted in training and in eval (both are ported: the
+    name is kept from when they raised); an unknown axis and a size of 0
+    or below -1 raise; the axes must use exactly the world; the layout is
+    row-major in the order of the axes, the model axis innermost, as JAX's
+    ``make_mesh`` reshapes the devices."""
     import dataclasses
 
-    from em_adapt_torch.parallel.mesh import data_axis_size
+    from em_adapt_torch.parallel.mesh import data_axis_size, mesh_layout
     from em_adapt_tpu.config import MeshConfig as JaxMesh
+    from em_adapt_tpu.parallel.mesh import make_mesh
 
     for f in dataclasses.fields(MeshConfig):
         assert getattr(MeshConfig(), f.name) == getattr(JaxMesh(), f.name)
     base = pcfg.ExperimentConfig()
-    pcfg.check_supported(pcfg.apply_overrides(base, ['mesh.axes=(("data",4),("space",1))']))
-    for axes, item in (('(("data",-1),("space",3))', "11c"),
-                       ('(("data",-1),("space",1),("model",2))', "11b")):
+    for axes in ('(("data",4),("space",1))', '(("data",-1),("space",3))',
+                 '(("data",-1),("space",1),("model",2))', '(("data",1),("space",2),("model",2))'):
         cfg = pcfg.apply_overrides(base, [f"mesh.axes={axes}"])
         for mode in ("train", "eval"):
-            with pytest.raises(ValueError, match=f"item {item}"):
-                pcfg.check_supported(cfg, mode)
+            pcfg.check_supported(cfg, mode)
     with pytest.raises(ValueError, match="unknown axis"):
         pcfg.check_mesh(MeshConfig(axes=(("batch", -1),)))
+    for size in (0, -2):
+        with pytest.raises(ValueError, match="expected -1 or >= 1"):
+            pcfg.check_mesh(MeshConfig(axes=(("data", -1), ("model", size))))
     assert data_axis_size(MeshConfig(), 4) == 4
     with pytest.raises(ValueError, match="use 2 devices, have 4"):
         data_axis_size(MeshConfig(axes=(("data", 2), ("space", 1))), 4)
+    axes = (("data", 2), ("space", 2), ("model", 2))
+    jax_mesh = make_mesh(JaxMesh(axes=axes)).mesh
+    import jax
+
+    ids = np.vectorize(lambda d: d.id)(jax_mesh.devices)
+    for rank in range(8):
+        sizes, coords = mesh_layout(MeshConfig(axes=axes), 8, rank)
+        assert sizes == {"data": 2, "space": 2, "model": 2}
+        where = np.argwhere(ids == jax.devices()[rank].id)[0]
+        assert (coords["data"], coords["space"], coords["model"]) == tuple(where)
+    assert mesh_layout(MeshConfig(axes=(("model", 2), ("data", 2))), 4, 1)[1] == {
+        "data": 1, "space": 0, "model": 0}
 
 
 # --- the training step ---------------------------------------------------
@@ -350,6 +313,7 @@ def _estep_world(world, p):
     """Each rank's weak labels of its rows for every case; then the stop
     agreement: rank 1 alone is signalled and proposes the later step."""
     from em_adapt_torch.ops.estep import estep_labels
+    from em_adapt_torch.parallel.mesh import make_plan
     from em_adapt_torch.utils.failure import GracefulShutdown
 
     scores, label, orders = p["inputs"]
@@ -361,7 +325,7 @@ def _estep_world(world, p):
                                  torch.from_numpy(orders), cfg).numpy()
     with pytest.raises(ValueError, match="native"):
         estep_labels(torch.from_numpy(scores), torch.from_numpy(label), torch.from_numpy(orders),
-                     pcfg.EStepConfig(num_iter=2, impl="native"))
+                     pcfg.EStepConfig(num_iter=2, impl="native"), make_plan(MeshConfig(), world))
     shutdown = GracefulShutdown()
     before = shutdown.requested_uniform()
     if world.rank == 1:
@@ -416,12 +380,14 @@ def _int8_world(world, p):
     fixed-protocol confusion matrix summed over the world, and its
     predictions."""
     from em_adapt_torch.eval.predict import Evaluator
+    from em_adapt_torch.parallel.mesh import make_plan
 
     ev = Evaluator(p["cfg"], p["qmodel"])
     image, label = (rows(p[k], world.rank, world.size) for k in ("image", "label"))
     batches = [{"image": image[i:i + 2], "label": label[i:i + 2]}
                for i in range(0, len(image), 2)]
-    return world.sum_host(ev.confusion_fixed(batches)), ev.predict_batch(image).numpy()
+    return (world.sum_host(ev.confusion_fixed(batches), make_plan(MeshConfig(), world)),
+            ev.predict_batch(image).numpy())
 
 
 def test_sharded_confusion_sums_to_full_and_jax(tmp_path):
