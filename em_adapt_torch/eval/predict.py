@@ -31,6 +31,7 @@ from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
 from em_adapt_torch.device import set_precision
 from em_adapt_torch.eval.miou import ConfusionAccumulator, miou_from_confusion
 from em_adapt_torch.models.deeplab import DeepLabLargeFOV
+from em_adapt_torch.utils import tracing
 
 
 #: Bytes of bilateral grid (cells x (classes + 1) f32) that the on-card
@@ -86,6 +87,7 @@ class Evaluator:
         self.model = model
         # The int8 model holds its weights as buffers.
         self.device = next(itertools.chain(model.parameters(), model.buffers())).device
+        self.passes = 0  # card-CRF VOC passes made: each one's entry id
 
     @torch.no_grad()
     def logits(self, images) -> torch.Tensor:
@@ -217,21 +219,31 @@ class Evaluator:
         per_image = crf_device.grid_cells(bh, bw, cfg) * (probs.shape[-1] + 1) * 4
         chunk = max(1, CRF_GRID_BYTES // per_image)
         n = len(raw_imgs)  # padding rows are not refined: their labels stay 0
-        labels = [crf_device.crf_refine(
-            probs[i:min(i + chunk, n)], rgb[i:min(i + chunk, n)], mask[i:min(i + chunk, n)],
-            bi_sxy=float(cfg.crf_bi_sxy), bi_srgb=float(cfg.crf_bi_srgb),
-            bi_compat=float(cfg.crf_bi_compat), g_sxy=float(cfg.crf_g_sxy),
-            g_compat=float(cfg.crf_g_compat), iterations=int(cfg.crf_iterations)).argmax(-1)
-            for i in range(0, n, chunk)]
+        labels = []
+        for i in range(0, n, chunk):
+            with tracing.span("crf.refine", stage=True):
+                labels.append(crf_device.crf_refine(
+                    probs[i:min(i + chunk, n)], rgb[i:min(i + chunk, n)],
+                    mask[i:min(i + chunk, n)], bi_sxy=float(cfg.crf_bi_sxy),
+                    bi_srgb=float(cfg.crf_bi_srgb), bi_compat=float(cfg.crf_bi_compat),
+                    g_sxy=float(cfg.crf_g_sxy), g_compat=float(cfg.crf_g_compat),
+                    iterations=int(cfg.crf_iterations)).argmax(-1))
         labels.append(torch.zeros((b - n, bh, bw), dtype=torch.int64, device=dev))
-        return torch.cat(labels).to(torch.uint8).cpu().numpy()
+        with tracing.span("eval.to_host") as copy:
+            out = torch.cat(labels).to(torch.uint8).cpu().numpy()
+        if dev.type != "cpu":
+            tracing.waited(copy.ns)
+        return out
 
     def _confusion_voc_device(self, dataset, bs: int) -> np.ndarray:
         """The VOC protocol with the CRF on the model's device: images
         batched per bucket (:func:`route`), their logits kept on the
         device, and only uint8 label maps copied back. The masked CRF is
         padding-invariant, so an image's labels do not depend on its
-        bucket."""
+        bucket. A pass is an entry of ``utils/tracing.py`` (the root span
+        ``eval.pass``) with the spans ``eval.load``, ``eval.preprocess``,
+        ``eval.forward``, ``eval.post`` (and in it ``crf.refine`` and
+        ``eval.to_host``) and ``eval.confusion``."""
         acc = ConfusionAccumulator(self.cfg.model.num_classes)
         ceiling, buckets = crf_buckets(self.cfg.eval)
         pending: dict[tuple[int, int], list] = {b: [] for b in buckets}
@@ -240,20 +252,28 @@ class Evaluator:
             pend = pending[bucket]
             if not pend:
                 return
-            logits = self.logits(_pad_rows(np.stack([p[0] for p in pend]), bs))
-            labels = self.voc_post_device(logits, [p[1] for p in pend], bucket)
-            for i, (_, _, raw_label) in enumerate(pend):
-                oh, ow = raw_label.shape[:2]
-                acc.update_host(labels[i, :oh, :ow], raw_label)
+            with tracing.span("eval.forward", stage=True):
+                logits = self.logits(_pad_rows(np.stack([p[0] for p in pend]), bs))
+            with tracing.span("eval.post"):
+                labels = self.voc_post_device(logits, [p[1] for p in pend], bucket)
+            with tracing.span("eval.confusion"):
+                for i, (_, _, raw_label) in enumerate(pend):
+                    oh, ow = raw_label.shape[:2]
+                    acc.update_host(labels[i, :oh, :ow], raw_label)
             pend.clear()
 
-        for i in range(len(dataset)):
-            raw_img, raw_label = dataset.load_raw(i)
-            img, _ = preprocess_eval(raw_img, None, input_size=self.cfg.model.input_size)
-            bucket = route(*raw_label.shape[:2], ceiling, buckets)
-            pending[bucket].append((img, raw_img, raw_label))
-            if len(pending[bucket]) == bs:
+        with tracing.root("eval.pass", "eval", self.passes, len(dataset)):
+            self.passes += 1
+            for i in range(len(dataset)):
+                with tracing.span("eval.load"):
+                    raw_img, raw_label = dataset.load_raw(i)
+                with tracing.span("eval.preprocess"):
+                    img, _ = preprocess_eval(raw_img, None,
+                                             input_size=self.cfg.model.input_size)
+                    bucket = route(*raw_label.shape[:2], ceiling, buckets)
+                pending[bucket].append((img, raw_img, raw_label))
+                if len(pending[bucket]) == bs:
+                    flush(bucket)
+            for bucket in buckets:
                 flush(bucket)
-        for bucket in buckets:
-            flush(bucket)
         return acc.matrix()

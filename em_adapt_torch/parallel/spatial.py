@@ -40,6 +40,7 @@ import torch.distributed as dist
 from em_adapt_torch.ops.conv import conv2d_same, same_padding
 from em_adapt_torch.ops.pooling import _same_pool_padding, max_pool_same
 from em_adapt_torch.parallel.mesh import MeshPlan
+from em_adapt_torch.utils import tracing
 
 Rows = tuple[int, int]
 
@@ -83,7 +84,7 @@ def _all_gather(buf: torch.Tensor, plan: MeshPlan) -> list[torch.Tensor]:
     """Every space rank's ``buf`` (one shape on all), moved as bytes."""
     flat = buf.contiguous().view(torch.uint8)
     out = [torch.empty_like(flat) for _ in range(plan.num_space_shards)]
-    with torch.profiler.record_function("space_exchange"):
+    with tracing.span("space_exchange"):
         dist.all_gather(out, flat, group=plan.space_group)
     return [o.view(buf.dtype) for o in out]
 

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from em_adapt_torch.parallel.mesh import TP_RULES, MeshPlan
+from em_adapt_torch.utils import tracing
 
 #: TP_RULES' HWIO dimension -> the port's OIHW one.
 _OIHW = {3: 0, 2: 1, 0: 2, 1: 3}
@@ -37,7 +38,7 @@ _OIHW = {3: 0, 2: 1, 0: 2, 1: 3}
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     y = x.to(torch.float32, copy=True)
-    with torch.profiler.record_function("model_allreduce"):
+    with tracing.span("model_allreduce"):
         dist.all_reduce(y, group=group)
     return y.to(x.dtype)
 

@@ -63,6 +63,7 @@ from em_adapt_torch.parallel.spatial import check_image_rows, gather_rows, my_ro
 from em_adapt_torch.train.checkpoint import CheckpointManager
 from em_adapt_torch.train.optim import AccumulatingSGD, lr_at
 from em_adapt_torch.train.state import TrainState
+from em_adapt_torch.utils import tracing
 from em_adapt_torch.utils.failure import GracefulShutdown, LossWatchdog
 
 
@@ -193,60 +194,66 @@ def loss_fn(
     c = cfg.model.num_classes
     plan = getattr(model, "module", model).plan
     strip = plan.num_space_shards > 1
-    logits = model(batch["image"], train=True, generator=generator, masks=masks,
-                   shard=(plan.data_index, plan.num_data_shards), strip=strip)
-    rows = logits.shape[1]  # the score map's rows: the whole map's on a space axis
-    if strip:
-        rows = score_map_rows(batch["image"].shape[1] * plan.num_space_shards)
-    out_hw = (rows, logits.shape[2])
-    label = batch["label"]
-    if tuple(label.shape[1:3]) == out_hw:
-        shrunk = label[..., 0]
-    else:
-        shrunk = resize_nearest_tf(label, out_hw)[..., 0]  # reference deeplab.py:110
-    if orders is None:
-        orders = make_class_orders(generator, cfg.estep.num_iter, c)
-    weak = None
-    # NCHW view of the logits (this rank's rows of them on a space axis).
-    nchw = logits.permute(0, 3, 1, 2)
-    warmup = step is not None and step < cfg.train.tag_warmup_steps
-    whole = gather_rows(nchw if warmup else nchw.detach(), plan, rows) if strip else nchw
-    n = plan.ddp_size
-    if warmup:
-        ce = logged = tag_classification_loss(whole.permute(0, 2, 3, 1), shrunk, c,
-                                              cfg.train.tag_warmup_smoothing,
-                                              cfg.train.tag_warmup_pool_r)
+    with tracing.span("step.forward", stage=True):
+        logits = model(batch["image"], train=True, generator=generator, masks=masks,
+                       shard=(plan.data_index, plan.num_data_shards), strip=strip)
+        rows = logits.shape[1]  # the score map's rows: the whole map's on a space axis
         if strip:
-            ce = logged * plan.num_space_shards
-    else:
-        weak = estep_labels(whole.detach().permute(0, 2, 3, 1), shrunk, orders, cfg.estep, plan)
-        target, mine = my_rows(weak, plan, 1), my_rows(shrunk, plan, 1)
-        # Every reduction below is a sum over the per-pixel losses:
-        # cross_entropy's own mean adds them with atomics on a CUDA card, so
-        # its value (not its gradient) would vary in the last bits from run
-        # to run, and a resumed run's losses must equal the uninterrupted
-        # run's.
-        if cfg.semi_supervised and "is_strong" in batch:
-            strong = batch["is_strong"].to(torch.bool)[:, None, None]
-            true_lab = mine.to(torch.int64)
-            target = torch.where(strong, true_lab, target)
-            valid = torch.where(strong, true_lab < c, True)
-            ce_map = F.cross_entropy(nchw, target.clamp(0, c - 1), reduction="none")
-            count = all_sum(valid.sum(), plan).clamp(min=1)
-            ce = (ce_map * valid).sum() / count
-            if n > 1:
-                ce = ce * n
-        elif strip:
-            ce_map = F.cross_entropy(nchw, target, reduction="none")
-            ce = ce_map.sum() * (plan.num_space_shards / (nchw.shape[0] * rows * nchw.shape[3]))
+            rows = score_map_rows(batch["image"].shape[1] * plan.num_space_shards)
+        out_hw = (rows, logits.shape[2])
+        label = batch["label"]
+        if tuple(label.shape[1:3]) == out_hw:
+            shrunk = label[..., 0]
         else:
-            ce = F.cross_entropy(nchw, target, reduction="none").mean()
-        logged = ce
-    l2 = getattr(model, "module", model).weight_l2()
-    total = ce + cfg.optim.weight_decay * l2
-    loss = total if logged is ce else logged + cfg.optim.weight_decay * l2
-    return total, {"loss": loss.detach(), "loss_norm": logged.detach(),
-                   "loss_l2": l2.detach(), "weak": weak}
+            shrunk = resize_nearest_tf(label, out_hw)[..., 0]  # reference deeplab.py:110
+    with tracing.span("step.estep", stage=True):
+        if orders is None:
+            orders = make_class_orders(generator, cfg.estep.num_iter, c)
+        weak = None
+        # NCHW view of the logits (this rank's rows of them on a space axis).
+        nchw = logits.permute(0, 3, 1, 2)
+        warmup = step is not None and step < cfg.train.tag_warmup_steps
+        whole = gather_rows(nchw if warmup else nchw.detach(), plan, rows) if strip else nchw
+        if not warmup:
+            weak = estep_labels(whole.detach().permute(0, 2, 3, 1), shrunk, orders, cfg.estep,
+                                plan)
+    with tracing.span("step.loss", stage=True):
+        n = plan.ddp_size
+        if warmup:
+            ce = logged = tag_classification_loss(whole.permute(0, 2, 3, 1), shrunk, c,
+                                                  cfg.train.tag_warmup_smoothing,
+                                                  cfg.train.tag_warmup_pool_r)
+            if strip:
+                ce = logged * plan.num_space_shards
+        else:
+            target, mine = my_rows(weak, plan, 1), my_rows(shrunk, plan, 1)
+            # Every reduction below is a sum over the per-pixel losses:
+            # cross_entropy's own mean adds them with atomics on a CUDA card,
+            # so its value (not its gradient) would vary in the last bits from
+            # run to run, and a resumed run's losses must equal the
+            # uninterrupted run's.
+            if cfg.semi_supervised and "is_strong" in batch:
+                strong = batch["is_strong"].to(torch.bool)[:, None, None]
+                true_lab = mine.to(torch.int64)
+                target = torch.where(strong, true_lab, target)
+                valid = torch.where(strong, true_lab < c, True)
+                ce_map = F.cross_entropy(nchw, target.clamp(0, c - 1), reduction="none")
+                count = all_sum(valid.sum(), plan).clamp(min=1)
+                ce = (ce_map * valid).sum() / count
+                if n > 1:
+                    ce = ce * n
+            elif strip:
+                ce_map = F.cross_entropy(nchw, target, reduction="none")
+                pixels = nchw.shape[0] * rows * nchw.shape[3]
+                ce = ce_map.sum() * (plan.num_space_shards / pixels)
+            else:
+                ce = F.cross_entropy(nchw, target, reduction="none").mean()
+            logged = ce
+        l2 = getattr(model, "module", model).weight_l2()
+        total = ce + cfg.optim.weight_decay * l2
+        loss = total if logged is ce else logged + cfg.optim.weight_decay * l2
+        return total, {"loss": loss.detach(), "loss_norm": logged.detach(),
+                       "loss_l2": l2.detach(), "weak": weak}
 
 
 def train_step(
@@ -262,23 +269,30 @@ def train_step(
     world of processes the forward goes through ``state.ddp``, ``masks``
     are this rank's slices, and "loss", "loss_norm" and
     "loss_l2" are the world's: the means over the data × space ranks of
-    this rank's model index."""
+    this rank's model index. Its stages are the spans :data:`STAGES` of
+    ``utils/tracing.py`` (the first three in :func:`loss_fn`)."""
     for p in state.optimizer.params:
         p.grad = None
     total, metrics = loss_fn(
         state.ddp if state.ddp is not None else state.model, batch, cfg,
         generator=state.generator, orders=orders, masks=masks, step=state.step,
     )
-    total.backward()
+    with tracing.span("step.backward", stage=True):
+        total.backward()
     plan = state.model.plan
     n = plan.ddp_size
     if n > 1:
         means = all_sum(torch.stack([metrics[k] for k in ("loss", "loss_norm", "loss_l2")]),
                         plan) / n
         metrics.update(loss=means[0], loss_norm=means[1], loss_l2=means[2])
-    metrics["updated"] = state.optimizer.step(state.step)
+    with tracing.span("step.optim", stage=True):
+        metrics["updated"] = state.optimizer.step(state.step)
     state.step += 1
     return metrics
+
+
+#: The stage spans of a training step, in order (``utils/tracing.py``).
+STAGES = ("step.forward", "step.estep", "step.loss", "step.backward", "step.optim")
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -295,9 +309,12 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def full_sync(device: torch.device) -> None:
     """Wait until ``device`` has run everything queued on it: the loop's
-    sync at a log window (a no-op on the CPU)."""
+    sync at a log window (a no-op on the CPU): the span ``fit.sync``,
+    counted as a wait (``utils/tracing.py``)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with tracing.span("fit.sync") as sync:
+            torch.cuda.synchronize(device)
+        tracing.waited(sync.ns)
 
 
 class LateLossReader:
@@ -334,9 +351,13 @@ class LateLossReader:
         return slot
 
     def read(self, slot: int) -> tuple[float, float, float]:
+        """The slot's values, once the card has copied them (a wait,
+        counted in ``utils/tracing.py``'s ``host_waits``)."""
+        t0 = time.perf_counter_ns()
         if self.events[slot] is not None:
             self.events[slot].synchronize()
         loss, norm, l2 = self.host[slot].tolist()
+        tracing.waited(time.perf_counter_ns() - t0)
         return loss, norm, l2
 
 
@@ -475,9 +496,14 @@ class Trainer:
           done), epoch, lr (of the last step run), images_per_sec, loss,
           loss_norm, loss_l2 (of the last step), window_seconds (wall
           since the previous window's end, or since the loop started, or
-          since the last eval ended), window_steps, and the sums over the
+          since the last eval ended), window_steps, the sums over the
           window's steps of wait_seconds and of estep_launches,
-          block1_fwd_launches and block1_bwd_launches (K1, K2 and K3)};
+          block1_fwd_launches and block1_bwd_launches (K1, K2 and K3),
+          host_waits and host_wait_seconds (the explicit waits on the
+          card in the window: how often and how long the loop blocked on
+          the card at its loss reads and syncs) and
+          stage_seconds (each of :data:`STAGES` to its host seconds
+          over the window's steps)};
         * periodic eval, where it crosses a multiple of
           ``train.eval_every_steps`` (None: never) and ``eval_fn`` is
           given: ``eval_fn(state)`` (higher is better), logged as {step,
@@ -496,6 +522,12 @@ class Trainer:
 
         ``step_hook``, if given, is called after each step's launch (the
         ``train`` command's profiler schedule, ``utils/profiling.py::trace_steps``).
+
+        Each step is an entry of ``utils/tracing.py`` (the root span
+        ``fit.step``, id the step), with the spans ``fit.next_batch``
+        (whose ns is the record's ``wait_seconds``), ``fit.loss_check``,
+        ``fit.sync``, ``fit.save``, ``fit.eval`` and the stages of
+        :func:`train_step`; a pull that finds no batch makes none.
 
         Returns one record per step: step, loss (filled in when the check
         reads it), lr, whether the params moved, ``wait_seconds`` (host
@@ -523,22 +555,29 @@ class Trainer:
 
         def check(upto: int) -> None:
             """Read and check every unread loss of a step below ``upto``."""
-            while unread and unread[0][0]["step"] < upto:
-                record, slot = unread.pop(0)
-                record["loss"] = reader.read(slot)[0]
-                reason = watchdog.check(record["loss"])
-                if reason is not None:
-                    raise RuntimeError(f"training unhealthy at step {record['step']}: {reason}")
+            with tracing.span("fit.loss_check"):
+                while unread and unread[0][0]["step"] < upto:
+                    record, slot = unread.pop(0)
+                    record["loss"] = reader.read(slot)[0]
+                    reason = watchdog.check(record["loss"])
+                    if reason is not None:
+                        raise RuntimeError(
+                            f"training unhealthy at step {record['step']}: {reason}")
 
         def checked_save(tag: str) -> None:
-            check(state.step)
-            self.checkpointer.save(state, tag)
+            with tracing.span("fit.save"):
+                check(state.step)
+                self.checkpointer.save(state, tag)
 
         def crossed(every: int | None, before: int) -> bool:
             return bool(every) and before // every < state.step // every
 
+        def window_start() -> tuple[float, int, int, dict]:
+            """(clock, records, next entry, wait counters) at a window's start."""
+            return time.perf_counter(), len(records), tracing.next_seq(), tracing.counters()
+
         stop_step = None
-        t_window, n_window = time.perf_counter(), len(records)
+        t_window, n_window, seq_window, waits_window = window_start()
         with GracefulShutdown() as shutdown, contextlib.ExitStack() as stack:
             if cfg.data.prefetch > 0 and not isinstance(batches, DevicePrefetcher):
                 batches = DevicePrefetcher(batches, self.device, depth=cfg.data.prefetch,
@@ -552,74 +591,81 @@ class Trainer:
                 if stop_step is not None and state.step >= stop_step:
                     checked_save("norm")
                     break
-                t0 = time.perf_counter()
-                batch = next(it, None)
-                wait = time.perf_counter() - t0
-                if batch is None:
-                    break
-                if state.step in lr_drops:
-                    checked_save("lr")
-                step = state.step
-                launches = (k1.launches, k23.launches, k23.bwd_launches)
-                t0 = time.perf_counter()
-                metrics = self.train_step(state, batch)
-                slot = reader.push(metrics)
-                record = {
-                    "step": step,
-                    "loss": None,
-                    "lr": lr_at(cfg.optim, self.steps_per_epoch, step),
-                    "updated": metrics["updated"],
-                    "wait_seconds": wait,
-                    "seconds": time.perf_counter() - t0,
-                    "estep_launches": k1.launches - launches[0],
-                    "block1_fwd_launches": k23.launches - launches[1],
-                    "block1_bwd_launches": k23.bwd_launches - launches[2],
-                }
-                records.append(record)
-                unread.append((record, slot))
-                if step_hook is not None:
-                    step_hook()
-                check(step)  # the previous step's loss, one step late
-                if crossed(log_every, step):
-                    full_sync(self.device)
-                    check(state.step)
-                    now = time.perf_counter()
-                    window = records[n_window:]
-                    if log_fn is not None:
-                        _, loss_norm, loss_l2 = reader.read(slot)
-                        log_fn({
-                            "step": state.step,
-                            "epoch": state.step / self.steps_per_epoch,
-                            "lr": record["lr"],
-                            "images_per_sec": len(window) * cfg.train.batch_size
-                            / (now - t_window),
-                            "loss": record["loss"],
-                            "loss_norm": loss_norm,
-                            "loss_l2": loss_l2,
-                            "window_seconds": now - t_window,
-                            "window_steps": len(window),
-                            **{k: sum(r[k] for r in window) for k in
-                               ("wait_seconds", "estep_launches", "block1_fwd_launches",
-                                "block1_bwd_launches")},
-                        })
-                    t_window, n_window = time.perf_counter(), len(records)
-                if crossed(eval_every, step):
-                    training = state.model.training
-                    try:
-                        score = float(eval_fn(state))
-                    finally:
-                        state.model.train(training)
-                    if log_fn is not None:
-                        log_fn({"step": state.step, "val_metric": score})
-                    if score > self._best_metric:
-                        self._best_metric = score
-                        checked_save("best")
-                        if self.world is None or self.world.is_main:
-                            self._store_best_metric(score, state.step)
-                    # Eval is synchronous host work: the next window's
-                    # throughput counts steps only.
-                    t_window, n_window = time.perf_counter(), len(records)
-                if crossed(save_every, step):
-                    checked_save("norm")
+                with tracing.root("fit.step", "train", state.step) as entry:
+                    with tracing.span("fit.next_batch") as pull:
+                        batch = next(it, None)
+                    if batch is None:
+                        entry.drop()
+                        break
+                    entry.images = len(batch["image"])
+                    if state.step in lr_drops:
+                        checked_save("lr")
+                    step = state.step
+                    launches = (k1.launches, k23.launches, k23.bwd_launches)
+                    t0 = time.perf_counter()
+                    metrics = self.train_step(state, batch)
+                    slot = reader.push(metrics)
+                    record = {
+                        "step": step,
+                        "loss": None,
+                        "lr": lr_at(cfg.optim, self.steps_per_epoch, step),
+                        "updated": metrics["updated"],
+                        "wait_seconds": pull.ns / 1e9,
+                        "seconds": time.perf_counter() - t0,
+                        "estep_launches": k1.launches - launches[0],
+                        "block1_fwd_launches": k23.launches - launches[1],
+                        "block1_bwd_launches": k23.bwd_launches - launches[2],
+                    }
+                    records.append(record)
+                    unread.append((record, slot))
+                    if step_hook is not None:
+                        step_hook()
+                    check(step)  # the previous step's loss, one step late
+                    if crossed(log_every, step):
+                        full_sync(self.device)
+                        check(state.step)
+                        now, waits = time.perf_counter(), tracing.counters()
+                        window = records[n_window:]
+                        if log_fn is not None:
+                            _, loss_norm, loss_l2 = reader.read(slot)
+                            log_fn({
+                                "step": state.step,
+                                "epoch": state.step / self.steps_per_epoch,
+                                "lr": record["lr"],
+                                "images_per_sec": len(window) * cfg.train.batch_size
+                                / (now - t_window),
+                                "loss": record["loss"],
+                                "loss_norm": loss_norm,
+                                "loss_l2": loss_l2,
+                                "window_seconds": now - t_window,
+                                "window_steps": len(window),
+                                **{k: sum(r[k] for r in window) for k in
+                                   ("wait_seconds", "estep_launches", "block1_fwd_launches",
+                                    "block1_bwd_launches")},
+                                "host_waits": waits["host_waits"] - waits_window["host_waits"],
+                                "host_wait_seconds":
+                                    (waits["host_wait_ns"] - waits_window["host_wait_ns"]) / 1e9,
+                                "stage_seconds": tracing.host_seconds(seq_window, STAGES),
+                            })
+                        t_window, n_window, seq_window, waits_window = window_start()
+                    if crossed(eval_every, step):
+                        training = state.model.training
+                        try:
+                            with tracing.span("fit.eval"):
+                                score = float(eval_fn(state))
+                        finally:
+                            state.model.train(training)
+                        if log_fn is not None:
+                            log_fn({"step": state.step, "val_metric": score})
+                        if score > self._best_metric:
+                            self._best_metric = score
+                            checked_save("best")
+                            if self.world is None or self.world.is_main:
+                                self._store_best_metric(score, state.step)
+                        # Eval is synchronous host work: the next window's
+                        # throughput counts steps only.
+                        t_window, n_window, seq_window, waits_window = window_start()
+                    if crossed(save_every, step):
+                        checked_save("norm")
             check(state.step)  # the last step's loss
         return records

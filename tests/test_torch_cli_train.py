@@ -255,7 +255,8 @@ def test_cli_preset_flag_reaches_the_trainer(tmp_path, monkeypatch):
 def test_profile_dir_writes_a_trace_of_the_first_steps(tmp_path):
     """``--profile-dir`` on a 2-step CPU run: one Chrome trace in the
     directory, with a ProfilerStep span for each step taken and one for
-    the loop's tail after the last (the final loss check)."""
+    the loop's tail after the last (the final loss check), and the spans
+    of the steps."""
     from em_adapt_torch.__main__ import main
 
     trace_dir = tmp_path / "trace"
@@ -266,3 +267,6 @@ def test_profile_dir_writes_a_trace_of_the_first_steps(tmp_path):
     events = json.loads(traces[0].read_text())["traceEvents"]
     steps = {e["name"] for e in events if str(e.get("name", "")).startswith("ProfilerStep#")}
     assert steps == {"ProfilerStep#0", "ProfilerStep#1", "ProfilerStep#2"}
+    # The program's own spans (utils/tracing.py) are in it as well.
+    annotations = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"fit.step", "step.forward", "step.backward"} <= annotations
