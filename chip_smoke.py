@@ -6,7 +6,8 @@
 Run from the root of a checkout. It builds the CUDA kernels from the
 checkout's sources and K3's per-part variants (one nvcc per library, in
 parallel), holds each against its plain PyTorch version on the card,
-times K3 part by part (``em_adapt_torch/tools/bench_block1_bwd_parts.py``),
+times K3 part by part (``em_adapt_torch/tools/bench_block1_bwd_parts.py``)
+and the card CRF's separable filter K4 axis by axis at eval batch 6,
 and drives the port's paths: full-width DeepLab-LargeFOV training at
 321x321, batch 6, accumulation 5, through ``Trainer.fit`` in f32 (the
 E-step kernel K1) and in bf16 (K1, the fused block1 forward K2 and
@@ -1360,6 +1361,138 @@ VOC_EVAL_TREE = dict(val=6, size=(500, 375), quality=90)
 VOC_CRF_RERUNS = 5
 
 
+#: K4's main-path shapes: eval batch 6 in the 384x512 bucket, the
+#: bilateral grid (4 x 5 x 52^3 cells of 22 channels at srgb 5) blurred on
+#: its five axes at the 5 taps of one cell, and q [B,H,W,21] on its two
+#: spatial axes at the 25 taps of sxy 3.
+K4_BATCH, K4_BUCKET = 6, (384, 512)
+
+
+def check_crf_filter(device, timed: bool) -> dict:
+    """K4 (``csrc/crf_filter.cu``) against the plain ``_filter1d`` on the card,
+    on the five axes of the eval batch's bilateral grid and the two spatial
+    axes of its q (:data:`K4_BATCH`, :data:`K4_BUCKET`): within 1e-6 of
+    max|x|, a rerun bit-equal, one launch an axis; its build spills
+    nothing. With ``timed``, each axis's ms beside the plain version's, the
+    library call's (:func:`conv_filter1d`, held against the plain version
+    too) and the bound (x read and out written once at HBM's peak), and the
+    sums of one mean-field iteration."""
+    import torch
+
+    from em_adapt_torch.config import EvalConfig
+    from em_adapt_torch.eval import crf_device
+    from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
+    from em_adapt_torch.utils import build
+
+    crf_device._lib()
+    log_text = build.build_logs[("crf_filter", ())]
+    for kernel in ("crf_filter_walkI6float4E", "crf_filter_walkIfE", "crf_filter_slab"):
+        report = ptxas_report(log_text, kernel)
+        log(f"K4 build {kernel}: ptxas {report['registers']} registers, "
+            f"{report['spill_stores']} B spill stores, {report['spill_loads']} B spill loads")
+        if report["spill_stores"] or report["spill_loads"]:
+            raise AssertionError(f"K4 {kernel} spills registers: {report}")
+    cfg = EvalConfig()
+    b, (h, w) = K4_BATCH, K4_BUCKET
+    gy, gx, gc, _ = crf_device._grid_geometry(h, w, float(cfg.crf_bi_sxy), float(cfg.crf_bi_srgb))
+    c = 21
+    cases = [("grid", (b, gy, gx, gc, gc, gc, c + 1), crf_device._gauss_taps(1.0, 2.0),
+              (1, 2, 3, 4, 5)),
+             ("spatial", (b, h, w, c), crf_device._gauss_taps(float(cfg.crf_g_sxy), 4.0), (1, 2))]
+    g = torch.Generator(device=device).manual_seed(24)
+    max_rel, rows = 0.0, []
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name, shape, taps, axes in cases:
+        x = torch.rand(shape, generator=g, device=device)
+        spare = torch.empty_like(x)
+        scale = float(x.abs().max())
+        for axis in axes:
+            before = crf_device.launches
+            got = crf_device._filter1d(x, taps, axis)
+            again = crf_device._filter1d(x, taps, axis, out=spare)
+            torch.cuda.synchronize()
+            if crf_device.launches != before + 2:
+                raise AssertionError(f"K4 {name} axis {axis}: the kernel was not launched")
+            want = crf_device._filter1d_plain(x, taps, axis)
+            rel = float((got - want).abs().max()) / scale
+            if rel > 1e-6 or not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"K4 {name} axis {axis}: max|kernel-plain| {rel:.3e} of "
+                                     f"max|x|, or a rerun not bit-equal")
+            max_rel = max(max_rel, rel)
+            del got
+            row = dict(case=name, axis=axis, n=shape[axis], taps=int(taps.size), rel_err=rel)
+            if timed:
+                ms = cuda_ms_per_launch(lambda: crf_device._filter1d(x, taps, axis, out=spare),
+                                        launches=20, reps=5, warmup=2)
+                plain_ms = cuda_ms(lambda: crf_device._filter1d_plain(x, taps, axis),
+                                   reps=5, warmup=1)
+                bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+                weight = torch.from_numpy(taps).to(device).view(1, 1, -1, 1)
+                try:
+                    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                                    deterministic=False, allow_tf32=False):
+                        lib_rel = float((conv_filter1d(x, weight, axis) - want).abs().max()) / scale
+                        library_ms = cuda_ms_per_launch(lambda: conv_filter1d(x, weight, axis),
+                                                        launches=20, reps=5, warmup=2)
+                    library = (f"library (cuDNN conv2d, TF32 off) {library_ms:.4f} ms per call "
+                               f"the same way, max|library-plain| {lib_rel:.2e} of max|x| "
+                               f"({'within' if lib_rel <= 1e-6 else 'BEYOND'} 1e-6)")
+                except RuntimeError as e:  # a shape cuDNN does not take: no library time
+                    library_ms, lib_rel = None, None
+                    library = f"library (cuDNN conv2d) failed: {str(e).splitlines()[0]}"
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+                           library_rel_err=lib_rel)
+                for k in sums:
+                    sums[k] = None if sums[k] is None or row[k] is None else sums[k] + row[k]
+                log(f"K4 {name} {tuple(shape)} axis {axis} (n {shape[axis]}, {taps.size} taps): "
+                    f"kernel {ms:.4f} ms per launch (20 back-to-back between CUDA events, "
+                    f"median of 5), plain {plain_ms:.4f} ms (median of 5 single calls), "
+                    f"{library}, bound {bound_ms:.4f} ms by bytes ({2 * x.numel() * 4} B at "
+                    f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {100 * bound_ms / ms:.1f}% of its "
+                    f"roofline; max|kernel-plain| {rel:.2e} of max|x|")
+            del want
+            rows.append(row)
+        del x, spare
+        torch.cuda.empty_cache()
+    # Launches of one refine at the configured iterations, on a small batch
+    # (the main path's count is the eval VOC phase's).
+    rng = np.random.default_rng(24)
+    probs = rng.random((2, 40, 56, c)).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    rgb = rng.integers(0, 256, size=(2, 40, 56, 3), dtype=np.uint8)
+    before = crf_device.launches
+    crf_device.make_crf_device(cfg, device=device)(probs, rgb, np.ones((2, 40, 56), np.float32))
+    refine_launches = crf_device.launches - before
+    if refine_launches != 2 + 7 * cfg.crf_iterations:
+        raise AssertionError(f"K4: a refine of {cfg.crf_iterations} iterations launched it "
+                             f"{refine_launches} times, not {2 + 7 * cfg.crf_iterations}")
+    log(f"K4 checks: {len(rows)} axes, max|kernel-plain| {max_rel:.2e} of max|x|, reruns "
+        f"bit-equal; {refine_launches} launches in a refine of {cfg.crf_iterations} iterations")
+    if not timed:
+        return dict(max_abs_err=max_rel, rows=rows, refine_launches=refine_launches)
+    lib_ms = sums["library_ms"]
+    library = ("library -: cuDNN refused a shape" if lib_ms is None else
+               f"library {lib_ms:.3f} ms ({lib_ms / sums['ms']:.3f} times the kernel's)")
+    log(f"K4 one mean-field iteration at B={b} {h}x{w} (5 grid + 2 spatial axes): kernel "
+        f"{sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, {library}, bound {sums['bound_ms']:.3f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}% of its "
+        f"roofline)")
+    return dict(max_abs_err=max_rel, rows=rows, refine_launches=refine_launches, ms=sums["ms"],
+                plain_ms=sums["plain_ms"], bound_ms=sums["bound_ms"], bound_by="bytes",
+                library_ms=lib_ms)
+
+
+def conv_filter1d(x, weight, axis: int):
+    """K4's work as one library call: cuDNN's conv2d of x viewed as
+    [outer, 1, n, inner] with ``weight`` [1, 1, 2r + 1, 1] (the taps, a
+    correlation as K4's) and zero padding r along n; x read once, the
+    output written once."""
+    import torch.nn.functional as F
+
+    axis = axis % x.dim()
+    v = x.view(math.prod(x.shape[:axis]), 1, x.shape[axis], math.prod(x.shape[axis + 1:]))
+    return F.conv2d(v, weight, padding=((weight.shape[2] - 1) // 2, 0)).view(x.shape)
+
+
 def crf_grid_bytes(bucket: tuple[int, int], classes: int, cfg) -> int:
     """Bytes one CRF iteration must move per image in ``bucket``: the
     bilateral grid (classes + 1 channels, f32) read and written once per
@@ -1477,7 +1610,7 @@ def eval_voc_phase(device, card: str) -> dict:
         lattices = permutohedral.lattices_built
         crf_devices.clear()
         crf_device.crf_refine = refine
-        k2.launches = 0
+        k2.launches = crf_device.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -1490,11 +1623,11 @@ def eval_voc_phase(device, card: str) -> dict:
         miou, _ = miou_from_confusion(cm)
         built = permutohedral.lattices_built - lattices
         out[name] = dict(wall=wall, images_per_s=VOC_EVAL_IMAGES / wall, miou=miou,
-                         launches=k2.launches, peak=peak)
+                         launches=k2.launches, k4_launches=crf_device.launches, peak=peak)
         log(f"{tag} {name}: {VOC_EVAL_IMAGES / wall:.3f} images/s over the whole window "
             f"({wall:.2f} s), mIoU {miou:.6f}, K2 launches {k2.launches}, lattices built "
-            f"{built}, CRF calls on the card {len(crf_devices)}, peak device memory "
-            f"{peak / 2**30:.3f} GiB ({card})")
+            f"{built}, CRF calls on the card {len(crf_devices)}, K4 launches "
+            f"{crf_device.launches}, peak device memory {peak / 2**30:.3f} GiB ({card})")
         if (k2.launches != want_k2[name] or int(cm.sum()) != nonvoid
                 or not (math.isfinite(miou) and 0.0 <= miou <= 1.0)):
             raise AssertionError(f"{tag} {name}: K2 launched {k2.launches} times (expected "
@@ -1506,6 +1639,13 @@ def eval_voc_phase(device, card: str) -> dict:
         if name == "card CRF" and (not crf_devices or set(crf_devices) != {device.type}
                                    or built):
             raise AssertionError(f"{tag}: the card CRF ran on {crf_devices}")
+        # K4 an axis: each refine's spatial denominator, then 2 spatial and 5
+        # grid axes an iteration; no other path launches it.
+        want_k4 = (2 + 7 * iters) * len(crf_devices) if name == "card CRF" else 0
+        if crf_device.launches != want_k4:
+            raise AssertionError(f"{tag} {name}: K4 launched {crf_device.launches} times in "
+                                 f"{len(crf_devices)} refines of {iters} iterations, not "
+                                 f"{want_k4}")
 
     # The card's CRF by bucket: one batch of the images routed there (padded
     # to the batch), its post-process timed between CUDA events.
@@ -3883,7 +4023,7 @@ def main(argv=None) -> int:
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    sources = ("estep", "block1_fwd", "block1_bwd")
+    sources = ("estep", "block1_fwd", "block1_bwd", "crf_filter")
     variants = [v.defines for v in parts.VARIANTS.values() if v.defines]
     jobs = [(name, ()) for name in sources] + [("block1_bwd", d) for d in variants]
     t0 = time.perf_counter()
@@ -3900,6 +4040,7 @@ def main(argv=None) -> int:
     k2_result = phase("K2 check", check_block1, device, timed=not args.quick)
     k3_result = phase("K3 check", check_block1_bwd, device, timed=not args.quick)
     parts_result = phase("K3 parts", check_block1_bwd_parts, device, timed=not args.quick)
+    k4_result = phase("K4 check", check_crf_filter, device, timed=not args.quick)
     if args.quick:
         return 0
     check_model_small_input(device)
@@ -3928,7 +4069,7 @@ def main(argv=None) -> int:
     phase("resume bf16", resume, device, card)
     phase("input bf16", input_phase, device, card)
     phase("input VOC", voc_tree_phase, device, card)
-    phase("eval VOC", eval_voc_phase, device, card)
+    voc_result = phase("eval VOC", eval_voc_phase, device, card)
     phase("loop bf16", loop_phase, device, card)
     phase("variants bf16", variants_phase, device, card)
     phase("learn", learn_phase, device, card)
@@ -3994,6 +4135,18 @@ def main(argv=None) -> int:
         "bound_ms": parts_result["bound_ms"],
         "bound_by": parts_result["bound_by"],
         "library_ms": parts_result["library_ms"],
+    }, {
+        "name": "crf_filter",
+        "route": "cuda",
+        "source": "em_adapt_torch/csrc/crf_filter.cu",
+        "replaces": None,
+        "launches": voc_result["runs"]["card CRF"]["k4_launches"],
+        "max_abs_err": k4_result["max_abs_err"],
+        "ms": k4_result["ms"],
+        "plain_ms": k4_result["plain_ms"],
+        "bound_ms": k4_result["bound_ms"],
+        "bound_by": k4_result["bound_by"],
+        "library_ms": k4_result["library_ms"],
     }]
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s from its imports to the results")
     print(json.dumps({"kernels": kernels}), flush=True)

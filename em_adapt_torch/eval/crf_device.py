@@ -27,11 +27,19 @@ to a valid pixel's update; its own output is garbage, to be cropped.
 The images of a batch are refined together (the grid has a batch axis);
 each image's output is the one it gets alone. The JAX package refines one
 at a time only to avoid a TPU runtime fault (crf_tpu.py:226-233).
+
+The separable filter (:func:`_filter1d`) is, on a CUDA tensor, one launch
+of the hand-written kernel K4 (``csrc/crf_filter.cu``, built and loaded
+at its first use) an axis, which reads each element once and writes it
+once; on a CPU tensor it is :func:`_filter1d_plain`, the same sums in the
+same order in stock PyTorch. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -48,18 +56,89 @@ def _gauss_taps(sigma: float, truncate: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _filter1d(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
+#: K4 launches made by :func:`_filter1d` (plain runs not counted).
+launches = 0
+
+
+def _filter1d_plain(x: torch.Tensor, taps: np.ndarray, axis: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Zero-padded 1-D correlation of ``x`` with ``taps`` along ``axis``
-    (``mode="constant"``), accumulated in place: two tensors of x's size
-    live at once, not a padded copy besides."""
+    (``mode="constant"``), accumulated in place (into ``out`` where given):
+    two tensors of x's size live at once, not a padded copy besides."""
     r = (taps.size - 1) // 2
     n = x.shape[axis]
-    out = x * float(taps[r])
+    out = x * float(taps[r]) if out is None else torch.mul(x, float(taps[r]), out=out)
     for d in range(1, min(r, n - 1) + 1):
         # out[i] += taps[r - d] x[i - d] and taps[r + d] x[i + d]
         out.narrow(axis, d, n - d).add_(x.narrow(axis, 0, n - d), alpha=float(taps[r - d]))
         out.narrow(axis, 0, n - d).add_(x.narrow(axis, d, n - d), alpha=float(taps[r + d]))
     return out
+
+
+def _lib() -> ctypes.CDLL:
+    from em_adapt_torch.utils.build import load
+
+    lib = load("crf_filter")
+    if not getattr(lib, "_em_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.em_crf_filter_launch.argtypes = [p, p, ll, i, ll, p, i, p]
+        lib.em_crf_filter_launch.restype = i
+        lib.em_cuda_error_string.argtypes = [i]
+        lib.em_cuda_error_string.restype = ctypes.c_char_p
+        lib._em_typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=32)
+def _taps_on(taps: bytes, device: torch.device) -> torch.Tensor:
+    """The f32 taps as a tensor on ``device``, copied there once."""
+    return torch.frombuffer(bytearray(taps), dtype=torch.float32).to(device)
+
+
+def filter1d_kernel(x: torch.Tensor, taps: np.ndarray, axis: int,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`_filter1d_plain` of a contiguous f32 CUDA tensor in one launch
+    of K4, into ``out`` (contiguous, x's shape, not x) where given."""
+    if x.device.type != "cuda":
+        raise ValueError(f"filter1d_kernel: unsupported device {x.device}")
+    taps = np.ascontiguousarray(taps, np.float32)
+    r = (taps.size - 1) // 2
+    if taps.ndim != 1 or taps.size != 2 * r + 1:
+        raise ValueError(f"filter1d_kernel: taps must be odd in number, got {taps.shape}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"filter1d_kernel: x must be contiguous float32, got {x.dtype} "
+                         f"with strides {x.stride()}")
+    if out is None:
+        out = torch.empty_like(x)
+    elif (out.device != x.device or out.dtype != x.dtype or out.shape != x.shape
+          or not out.is_contiguous() or out.data_ptr() == x.data_ptr()):
+        raise ValueError("filter1d_kernel: out must be a contiguous float32 tensor of x's "
+                         "shape on its device, other than x")
+    lib = _lib()
+    axis = axis % x.dim()
+    shape = x.shape
+    outer, inner = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
+    dev_taps = _taps_on(taps.tobytes(), x.device)
+    with torch.cuda.device(x.device):
+        err = lib.em_crf_filter_launch(x.data_ptr(), out.data_ptr(), outer, shape[axis], inner,
+                                       dev_taps.data_ptr(), r,
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"crf filter kernel launch failed: "
+                           f"{lib.em_cuda_error_string(err).decode()} ({err})")
+    global launches
+    launches += 1
+    return out
+
+
+def _filter1d(x: torch.Tensor, taps: np.ndarray, axis: int,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """Zero-padded 1-D correlation of ``x`` with ``taps`` along ``axis``
+    (``mode="constant"``), into ``out`` where given: K4 on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return _filter1d_plain(x, taps, axis, out)
+    return filter1d_kernel(x, taps, axis, out)
 
 
 def _spatial_filter(q: torch.Tensor, mask: torch.Tensor, taps: np.ndarray,
@@ -126,8 +205,10 @@ def _splat_blur_slice(q: torch.Tensor, mask: torch.Tensor, flat: torch.Tensor,
     grid = torch.zeros(cells, c + 1, dtype=torch.float32, device=q.device)
     grid.index_put_((flat,), vals, accumulate=True)
     grid = grid.view(*grid_shape, c + 1)
+    spare = torch.empty_like(grid)  # the two buffers take turns over the five axes
     for axis in range(1, 6):
-        grid = _filter1d(grid, taps, axis)
+        grid, spare = _filter1d(grid, taps, axis, out=spare), grid
+    del spare  # one grid, not two, while the slice allocates
     sliced = grid.reshape(cells, c + 1).index_select(0, flat).reshape(b, h, w, c + 1)
     return sliced[..., :c] / sliced[..., c:].clamp_min(1e-8)
 

@@ -154,3 +154,28 @@ def test_committed_fault_fixture_refines_to_valid_probabilities():
     want = np.asarray(make_crf_tpu(JaxEvalConfig(), num_iterations=2)(
         jnp.asarray(probs), jnp.asarray(rgb), jnp.asarray(mask)))
     np.testing.assert_allclose(out, want, rtol=0, atol=1e-5)
+
+
+def test_filter_on_the_cpu_takes_the_plain_path_and_launches_nothing():
+    """On a CPU tensor ``_filter1d`` is ``_filter1d_plain`` (into a given
+    buffer too) and K4's launch count stays 0, through a whole refine."""
+    g = np.random.default_rng(5)
+    x = _t(g.normal(size=(2, 4, 5, 3, 22)).astype(np.float32))
+    taps = crf_device._gauss_taps(1.0, 2.0)
+    before = crf_device.launches
+    for axis in range(1, 5):
+        want = crf_device._filter1d_plain(x, taps, axis)
+        assert torch.equal(crf_device._filter1d(x, taps, axis), want)
+        spare = torch.full_like(x, float("nan"))
+        assert crf_device._filter1d(x, taps, axis, out=spare) is spare
+        assert torch.equal(spare, want)
+    probs, rgb = _two_region_case(seed=4, h=12, w=16)
+    crf_device.dense_crf_device(probs, rgb, num_iterations=2, device=CPU)
+    assert crf_device.launches == before
+
+
+def test_filter_kernel_refuses_a_cpu_tensor():
+    """K4's wrapper takes CUDA tensors only: no fallback to the plain path."""
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        crf_device.filter1d_kernel(x, crf_device._gauss_taps(1.0, 2.0), 1)

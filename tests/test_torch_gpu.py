@@ -825,6 +825,100 @@ def test_crf_device_on_the_card_matches_the_cpu(cuda_device):
     assert float((got.cpu() - want).abs().max()) <= 1e-5
 
 
+#: K4's cases: (shape, the axes filtered). The grid of two 384x512 images
+#: (4 x 5 x 52^3 cells of 22 channels), the spatial filter's [B,H,W,21],
+#: an axis one long and one shorter than the radii.
+K4_SHAPES = (((2, 4, 5, 52, 52, 52, 22), (1, 2, 3, 4, 5)), ((2, 384, 512, 21), (1, 2)),
+             ((2, 1, 40, 21), (1, 2)), ((3, 3, 7, 64), (1, 2)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [2, 4, 12])
+def test_crf_filter_kernel_matches_plain(cuda_device, radius):
+    """K4 against the plain ``_filter1d`` on the card, on every axis of each
+    of :data:`K4_SHAPES` at radius 2 (the grid's 5 taps), 4 (the 129^2
+    bucket's 9) and 12 (the spatial filter's 25): within 1e-6 of max|x|
+    (the same fma order, PyTorch's strided add its own rounding)."""
+    from em_adapt_torch.eval import crf_device
+
+    taps = crf_device._gauss_taps(radius / 2.0, 2.0)
+    assert taps.size == 2 * radius + 1
+    g = torch.Generator(device=cuda_device).manual_seed(radius)
+    for shape, axes in K4_SHAPES:
+        x = torch.randn(shape, generator=g, device=cuda_device)
+        for axis in axes:
+            before = crf_device.launches
+            got = crf_device._filter1d(x, taps, axis)
+            assert crf_device.launches == before + 1
+            want = crf_device._filter1d_plain(x, taps, axis)
+            err = float((got - want).abs().max())
+            assert err <= 1e-6 * float(x.abs().max()), (shape, axis, err)
+        del x
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_crf_filter_kernel_is_reproducible_and_fills_out(cuda_device):
+    """A rerun of K4 gives the same bits, on a column-walk and a slab-walk
+    axis, into a given buffer as into a fresh one."""
+    from em_adapt_torch.eval import crf_device
+
+    taps = crf_device._gauss_taps(1.0, 2.0)
+    x = torch.randn(2, 4, 5, 52, 52, 52, 22, device=cuda_device)
+    for axis in (3, 5):
+        first = crf_device._filter1d(x, taps, axis)
+        spare = torch.full_like(x, float("nan"))
+        again = crf_device._filter1d(x, taps, axis, out=spare)
+        assert again is spare
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_crf_refine_launches_k4_72_times(cuda_device):
+    """A 10-iteration ``crf_refine`` on the card launches K4 2 + 7 x 10 =
+    72 times: the spatial denominator's two axes, then each iteration's
+    two spatial and five grid axes."""
+    from em_adapt_torch.eval import crf_device
+
+    g = np.random.default_rng(1)
+    probs = g.random((2, 40, 56, 21)).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    rgb = g.integers(0, 256, size=(2, 40, 56, 3), dtype=np.uint8)
+    mask = np.ones((2, 40, 56), np.float32)
+    before = crf_device.launches
+    out = crf_device.make_crf_device(device=cuda_device, num_iterations=10)(probs, rgb, mask)
+    torch.cuda.synchronize()
+    assert crf_device.launches - before == 72
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+def test_crf_filter_kernel_builds_without_spills(cuda_device):
+    """K4's three instances (column walk in float4 and float, slab walk)
+    spill no register."""
+    from em_adapt_torch.eval import crf_device
+    from em_adapt_torch.tools.bench_block1_bwd_parts import ptxas_report
+    from em_adapt_torch.utils import build
+
+    crf_device._lib()
+    log = build.build_logs[("crf_filter", ())]
+    for kernel in ("crf_filter_walkI6float4E", "crf_filter_walkIfE", "crf_filter_slab"):
+        report = ptxas_report(log, kernel)
+        assert report["spill_stores"] == report["spill_loads"] == 0, kernel
+
+
+@pytest.mark.gpu
+def test_crf_filter_kernel_refuses_a_radius_beyond_its_limit(cuda_device):
+    """A radius above the launcher's 255 comes back as its CUDA error and
+    raises; 255 itself runs."""
+    from em_adapt_torch.eval import crf_device
+
+    x = torch.randn(2, 8, 3, device=cuda_device)
+    crf_device._filter1d(x, np.full(511, 1 / 511, np.float32), 1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        crf_device._filter1d(x, np.full(513, 1 / 513, np.float32), 1)
+
+
 @pytest.mark.gpu
 def test_voc_protocol_on_the_card(cuda_device):
     """A small model on the card: the VOC protocol without the CRF, with
