@@ -31,6 +31,7 @@ import torch
 from em_adapt_torch.config import ExperimentConfig
 from em_adapt_torch.device import set_precision
 from em_adapt_torch.models.convert import to_jax_params
+from em_adapt_torch.models.deeplab import require_vgg
 from em_adapt_torch.ops import block1  # noqa: F401  registers em_adapt::block1_fwd
 
 #: The operator of K2 as it appears in an exported graph's nodes.
@@ -105,9 +106,12 @@ def export_params_npy(model_or_params, path: str) -> None:
     ``load_caffe_init``) read it back; every layer is in the file bit for
     bit, fc8 included, though an init.npy consumer re-initializes fc8 by
     contract. Written through a file object, so that no ".npy" is
-    appended to ``path``."""
-    params = (to_jax_params(model_or_params) if isinstance(model_or_params, torch.nn.Module)
-              else model_or_params)
+    appended to ``path``. DeepLab-LargeFOV's layout only."""
+    if isinstance(model_or_params, torch.nn.Module):
+        require_vgg(model_or_params.cfg, "the npy interchange (export --format npy)")
+        params = to_jax_params(model_or_params)
+    else:
+        params = model_or_params
     tree = {layer: {k: np.asarray(v, np.float32) for k, v in leaves.items()}
             for layer, leaves in params.items()}
     with open(path, "wb") as f:

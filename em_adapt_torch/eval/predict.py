@@ -30,7 +30,6 @@ from em_adapt_torch.config import EvalConfig, ExperimentConfig, check_supported
 from em_adapt_torch.data.augment import preprocess_eval, resize_bilinear_np
 from em_adapt_torch.device import set_precision
 from em_adapt_torch.eval.miou import ConfusionAccumulator, miou_from_confusion
-from em_adapt_torch.models.deeplab import DeepLabLargeFOV
 from em_adapt_torch.utils import tracing
 
 
@@ -77,10 +76,11 @@ def route(oh: int, ow: int, ceiling: tuple[int, int], buckets) -> tuple[int, int
 
 class Evaluator:
     """Evaluates ``model`` (its weights and device as they are) under
-    ``torch.no_grad()`` and ``model.eval()``: a ``DeepLabLargeFOV`` or
-    the int8 ``eval/quantize.py::QuantizedDeepLabLargeFOV``."""
+    ``torch.no_grad()`` and ``model.eval()``: a registered architecture
+    (``models/registry.py``) or the int8
+    ``eval/quantize.py::QuantizedDeepLabLargeFOV``."""
 
-    def __init__(self, cfg: ExperimentConfig, model: DeepLabLargeFOV):
+    def __init__(self, cfg: ExperimentConfig, model: torch.nn.Module):
         check_supported(cfg, "eval")
         set_precision(cfg.model.compute_dtype)
         self.cfg = cfg

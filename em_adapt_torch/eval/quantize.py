@@ -34,7 +34,7 @@ from torch import nn
 from em_adapt_torch.config import ModelConfig
 from em_adapt_torch.data.augment import normalize_uint8
 from em_adapt_torch.device import set_precision
-from em_adapt_torch.models.deeplab import POOLS, layer_specs
+from em_adapt_torch.models.deeplab import POOLS, layer_specs, require_vgg
 from em_adapt_torch.ops.conv import conv2d_same, same_padding
 from em_adapt_torch.ops.pooling import max_pool_same
 from em_adapt_torch.ops.resize import resize_bilinear_tf
@@ -62,6 +62,7 @@ def observe_activation_ranges(cfg: ModelConfig, model_or_params, batches) -> dic
     after every layer but fc8 and the pools at ``POOLS``. Returns
     {layer: amax}; a range <= 0 becomes 1.0 (an all-zero input: any scale
     works). One copy to the host a batch."""
+    require_vgg(cfg, "int8 PTQ (eval --int8)")
     set_precision()
     layers = _float_layers(model_or_params)
     device = next(iter(layers.values()))[0].device
@@ -88,6 +89,7 @@ def quantize_params(params, act_ranges: dict[str, float], cfg: ModelConfig) -> d
     (round half to even, as ``jnp.round``, then clip to ±127), ``scale`` =
     s_w * s_x per output channel (the one dequantization multiplier),
     ``inv_sx`` = 1 / s_x for the input quantizer, ``b`` float32."""
+    require_vgg(cfg, "int8 PTQ (eval --int8)")
     layers = _float_layers(params)
     q = {}
     for name, *_ in layer_specs(cfg):

@@ -80,14 +80,6 @@ POOLS: dict[str, int] = {
 }
 
 
-def score_map_rows(h: int) -> int:
-    """The score map's rows (or columns) for an input of ``h``: ceil(h/s)
-    through each pool's stride s (output stride 8: 321 -> 41, 513 -> 65)."""
-    for stride in POOLS.values():
-        h = -(-h // stride)
-    return h
-
-
 def vgg_conv_specs(cfg: ModelConfig) -> tuple[tuple[str, int, int, int, int, int], ...]:
     """The VGG trunk with the config's input channels, conv5 rate and
     width multiplier applied."""
@@ -130,8 +122,18 @@ def _xavier_uniform(generator: torch.Generator, shape: tuple[int, ...]) -> torch
 
 def init_params(
     generator: torch.Generator, cfg: ModelConfig, init_model: dict[str, Any] | None = None
+) -> dict[str, dict[str, Any]]:
+    """Fresh parameters of the architecture ``cfg.name`` names, in the
+    layout its ``load_params`` takes: the model class's ``init_params``
+    (:func:`vgg_init_params` for DeepLab-LargeFOV)."""
+    return get_model(cfg.name).init_params(generator, cfg, init_model)
+
+
+def vgg_init_params(
+    generator: torch.Generator, cfg: ModelConfig, init_model: dict[str, Any] | None = None
 ) -> dict[str, dict[str, torch.Tensor]]:
-    """Parameters ``{layer: {"w": HWIO, "b": [C]}}`` on the generator's device.
+    """DeepLab-LargeFOV's parameters ``{layer: {"w": HWIO, "b": [C]}}`` on
+    the generator's device.
 
     With ``init_model`` (the Caffe-converted init.npy dict) every layer but
     fc8 copies it and fc8 gets Xavier-uniform w and b; without, the
@@ -165,7 +167,7 @@ def init_params(
 
 
 def build_model(cfg: ModelConfig, seed: int, device: torch.device,
-                plan: MeshPlan | None = None) -> "DeepLabLargeFOV":
+                plan: MeshPlan | None = None) -> nn.Module:
     """The model ``cfg.name`` names, with fresh parameters on ``device``:
     the Caffe init.npy of ``cfg.init_model_path`` or the
     ``cfg.init_scheme`` draw, made on the CPU from ``seed`` so that a seed
@@ -174,7 +176,7 @@ def build_model(cfg: ModelConfig, seed: int, device: torch.device,
     weights that one process starts from."""
     cls = get_model(cfg.name)
     init_model = load_caffe_init(cfg.init_model_path) if cfg.init_model_path else None
-    params = init_params(torch.Generator().manual_seed(seed), cfg, init_model)
+    params = cls.init_params(torch.Generator().manual_seed(seed), cfg, init_model)
     return cls(cfg, plan=plan).load_params(params).to(device)
 
 
@@ -232,6 +234,14 @@ class _Conv(nn.Module):
         return conv2d_same(x, self.weight, self.bias, rate=self.rate, compute_dtype=compute_dtype)
 
 
+def require_vgg(cfg: ModelConfig, what: str) -> None:
+    """Raise for an architecture other than DeepLab-LargeFOV on a path that
+    walks VGG's layer table (``what`` names the path)."""
+    if cfg.name != "deeplab_largefov":
+        raise ValueError(f"{what} runs only model.name='deeplab_largefov' (VGG-16 "
+                         f"DeepLab-LargeFOV); model.name={cfg.name!r} has no VGG layer table")
+
+
 @register_model("deeplab_largefov")
 class DeepLabLargeFOV(nn.Module):
     """``model(x, train=..., generator=...)`` -> NHWC float32 logits.
@@ -240,6 +250,14 @@ class DeepLabLargeFOV(nn.Module):
     ``load_state_dict(from_jax_params(...))``) fills them. ``plan``: this
     rank's place on a mesh of processes (default: one process).
     """
+
+    #: The classifier head's layers: the Caffe LR groups' x10/x20
+    #: (``train/optim.py::lr_group``).
+    HEAD = ("fc8",)
+    #: Input pixels per score-map pixel a side: ceil(H/8) rows of logits
+    #: (the pools' strides, :data:`POOLS`; 321 -> 41, 513 -> 65).
+    output_stride = math.prod(POOLS.values())
+    init_params = staticmethod(vgg_init_params)
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), plan: MeshPlan | None = None):
         super().__init__()

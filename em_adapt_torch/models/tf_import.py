@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 
 from em_adapt_torch.config import ModelConfig
-from em_adapt_torch.models.deeplab import layer_specs
+from em_adapt_torch.models.deeplab import layer_specs, require_vgg
 
 
 def load_tf_checkpoint_params(prefix: str, cfg: ModelConfig) -> dict[str, dict[str, np.ndarray]]:
@@ -34,6 +34,7 @@ def load_tf_checkpoint_params(prefix: str, cfg: ModelConfig) -> dict[str, dict[s
     with both shapes (e.g. a 21-class checkpoint under
     ``model.num_classes=4``).
     """
+    require_vgg(cfg, "TF1 checkpoint import (import-tf)")
     try:
         import tensorflow as tf
     except ImportError as e:

@@ -28,6 +28,7 @@ def conv2d_same(
     rate: int = 1,
     compute_dtype: torch.dtype | None = None,
     h_pad: tuple[int, int] | None = None,
+    stride: int = 1,
 ) -> torch.Tensor:
     """Stride-1 SAME conv. x [B,Cin,H,W], w [Cout,Cin,kh,kw], atrous ``rate``.
 
@@ -44,15 +45,20 @@ def conv2d_same(
     ``h_pad`` (top, bottom) replaces the SAME padding of H: a row strip
     whose halo rows are already in ``x`` (``parallel/spatial.py``) pads
     only at the image's true edges.
+
+    ``stride`` > 1 keeps the stride-1 padding and strides the product:
+    Caffe's symmetric pad of (k-1)/2 for an odd kernel, ceil(H/stride)
+    outputs (DeepLab-v2 ResNet's conv1 and res3a, ``models/resnet.py``),
+    not TF's SAME rule for strided convolutions.
     """
     if compute_dtype is not None:
         orig = x.dtype
         y = conv2d_same(x.to(compute_dtype), w.to(compute_dtype), rate=rate,
-                        h_pad=h_pad).to(orig)
+                        h_pad=h_pad, stride=stride).to(orig)
         return y if b is None else y + b.to(orig)[:, None, None]
     (top, bottom), (left, right) = (same_padding(k, rate) for k in w.shape[2:])
     if h_pad is not None:
         top, bottom = h_pad
     if top == bottom and left == right:
-        return F.conv2d(x, w, b, padding=(top, left), dilation=rate)
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, dilation=rate)
+        return F.conv2d(x, w, b, stride=stride, padding=(top, left), dilation=rate)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, stride=stride, dilation=rate)

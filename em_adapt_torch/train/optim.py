@@ -13,9 +13,11 @@ The port of ``em_adapt_tpu/train/optim.py::build_optimizer``
   at s (the re-indexing of optim.py:117-128);
 * weight decay enters through the loss, not here;
 * with ``lr_multipliers`` the Caffe LR groups scale the (accumulated)
-  gradient before SGD: bias x2, fc8 weight x10, fc8 bias x20
-  (optim.py:79-105). The reference computes them and drops them (a dead
-  rebinding loop, reference deeplab.py:194-200), so they default off.
+  gradient before SGD: bias x2, the classifier head's weights x10 and
+  biases x20 (optim.py:79-105). The model names its head (its ``HEAD``:
+  DeepLab-LargeFOV's fc8, DeepLab-v2's four ASPP convs). The reference
+  computes the groups and drops them (a dead rebinding loop, reference
+  deeplab.py:194-200), so they default off.
 """
 
 from __future__ import annotations
@@ -41,16 +43,17 @@ def lr_at(cfg: OptimConfig, steps_per_epoch: int, step: int) -> float:
 
 
 #: Gradient multiplier of each Caffe LR group (optim.py:93).
-GROUP_MULTIPLIERS = {"weight": 1.0, "bias": 2.0, "fc8_w": 10.0, "fc8_b": 20.0}
+GROUP_MULTIPLIERS = {"weight": 1.0, "bias": 2.0, "head_w": 10.0, "head_b": 20.0}
 
 
-def lr_group(name: str) -> str:
+def lr_group(name: str, head: Iterable[str]) -> str:
     """The LR group of the parameter ``name`` ("layers.<layer>.weight" or
-    ".bias", as ``named_parameters`` gives it)."""
+    ".bias", as ``named_parameters`` gives it) in a model whose classifier
+    head is the layers ``head``."""
     layer, kind = name.split(".")[-2:]
     bias = kind == "bias"
-    if layer == "fc8":
-        return "fc8_b" if bias else "fc8_w"
+    if layer in head:
+        return "head_b" if bias else "head_w"
     return "bias" if bias else "weight"
 
 
@@ -58,10 +61,12 @@ class AccumulatingSGD:
     """``optax.MultiSteps(optax.sgd(lr, momentum), accum_steps)`` over
     parameters whose ``.grad`` holds one microbatch's gradient; with
     ``cfg.lr_multipliers`` the ``_scale_by_group`` link before SGD, for
-    which ``names`` (one per parameter) are needed."""
+    which ``names`` (one per parameter) and ``head``, the model's
+    ``HEAD``, are needed."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: OptimConfig,
-                 steps_per_epoch: int = 1, names: Iterable[str] | None = None):
+                 steps_per_epoch: int = 1, names: Iterable[str] | None = None,
+                 head: Iterable[str] | None = None):
         self.params = list(params)
         self.cfg = cfg
         self.steps_per_epoch = steps_per_epoch
@@ -70,7 +75,10 @@ class AccumulatingSGD:
             names = list(names) if names is not None else None
             if names is None or len(names) != len(self.params):
                 raise ValueError("optim.lr_multipliers needs one name per parameter")
-            self.multipliers = [GROUP_MULTIPLIERS[lr_group(n)] for n in names]
+            if head is None:
+                raise ValueError("optim.lr_multipliers needs the model's head layers (its HEAD)")
+            head = set(head)
+            self.multipliers = [GROUP_MULTIPLIERS[lr_group(n, head)] for n in names]
         self.sgd = torch.optim.SGD(
             self.params, lr=cfg.base_lr, momentum=cfg.momentum, dampening=0.0,
             nesterov=False, weight_decay=0.0,

@@ -14,7 +14,6 @@ import dataclasses
 
 import torch
 
-from em_adapt_torch.models.deeplab import DeepLabLargeFOV
 from em_adapt_torch.train.optim import AccumulatingSGD
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -22,7 +21,9 @@ _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 @dataclasses.dataclass
 class TrainState:
-    model: DeepLabLargeFOV
+    #: A registered architecture (``models/registry.py``); its state dict,
+    #: frozen BN statistics included, is the checkpoint's "params".
+    model: torch.nn.Module
     optimizer: AccumulatingSGD
     generator: torch.Generator
     step: int = 0

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from em_adapt_torch.config import ExperimentConfig, check_supported
 from em_adapt_torch.data.pipeline import DevicePrefetcher
 from em_adapt_torch.device import resolve_device, set_precision
-from em_adapt_torch.models.deeplab import DeepLabLargeFOV, build_model, score_map_rows
+from em_adapt_torch.models.deeplab import build_model
 from em_adapt_torch.ops import block1 as k23
 from em_adapt_torch.ops import estep_kernel as k1
 from em_adapt_torch.ops.estep import estep_labels, make_class_orders
@@ -146,7 +146,7 @@ def tag_classification_loss(
 
 
 def loss_fn(
-    model: DeepLabLargeFOV,
+    model: torch.nn.Module,
     batch: dict,
     cfg: ExperimentConfig,
     *,
@@ -159,8 +159,9 @@ def loss_fn(
 
     batch: {"image" [B,H,W,3], "label" [B,H,W,1] (255 = ignore), and with
     ``cfg.semi_supervised`` optionally "is_strong" [B] bool} tensors on
-    the model's device. ``model`` may be the ``DistributedDataParallel``
-    wrapper of one. ``orders`` and ``masks`` replace the draws from
+    the model's device. ``model`` is a registered architecture
+    (``models/registry.py``) or the ``DistributedDataParallel`` wrapper of
+    one. ``orders`` and ``masks`` replace the draws from
     ``generator``. Returns (total, {"loss", "loss_norm", "loss_l2",
     "weak"}); "weak" is None on a tag warm-up step.
 
@@ -192,14 +193,16 @@ def loss_fn(
     gradient. The logged values are the unscaled losses.
     """
     c = cfg.model.num_classes
-    plan = getattr(model, "module", model).plan
+    net = getattr(model, "module", model)
+    plan = net.plan
     strip = plan.num_space_shards > 1
     with tracing.span("step.forward", stage=True):
         logits = model(batch["image"], train=True, generator=generator, masks=masks,
                        shard=(plan.data_index, plan.num_data_shards), strip=strip)
         rows = logits.shape[1]  # the score map's rows: the whole map's on a space axis
-        if strip:
-            rows = score_map_rows(batch["image"].shape[1] * plan.num_space_shards)
+        if strip:  # the whole image's ceil(H / output stride)
+            height = batch["image"].shape[1] * plan.num_space_shards
+            rows = -(-height // net.output_stride)
         out_hw = (rows, logits.shape[2])
         label = batch["label"]
         if tuple(label.shape[1:3]) == out_hw:
@@ -249,7 +252,7 @@ def loss_fn(
             else:
                 ce = F.cross_entropy(nchw, target, reduction="none").mean()
             logged = ce
-        l2 = getattr(model, "module", model).weight_l2()
+        l2 = net.weight_l2()
         total = ce + cfg.optim.weight_decay * l2
         loss = total if logged is ce else logged + cfg.optim.weight_decay * l2
         return total, {"loss": loss.detach(), "loss_norm": logged.detach(),
@@ -403,7 +406,8 @@ class Trainer:
         model = build_model(self.cfg.model, seed, self.device, plan=self.plan)
         model.train()
         names, params = zip(*model.named_parameters())
-        optimizer = AccumulatingSGD(params, self.cfg.optim, self.steps_per_epoch, names=names)
+        optimizer = AccumulatingSGD(params, self.cfg.optim, self.steps_per_epoch, names=names,
+                                    head=model.HEAD)
         generator = torch.Generator(self.device).manual_seed(seed + 1)
         ddp = None
         if self.world is not None:

@@ -274,14 +274,18 @@ def test_serving_commands_run_on_the_card_by_default(command, tmp_path, monkeypa
 
 
 def test_registry_unknown_name_matches_jax():
-    from em_adapt_tpu.models.registry import get_model as jax_get_model
+    from em_adapt_tpu.models import registry as jax_registry
 
     assert registry.get_model("deeplab_largefov") is DeepLabLargeFOV
     with pytest.raises(KeyError) as port_err:
         registry.get_model("segformer")
     with pytest.raises(KeyError) as jax_err:
-        jax_get_model("segformer")
-    assert str(port_err.value) == str(jax_err.value)
+        jax_registry.get_model("segformer")
+    # The same message, each package naming the architectures it has (the
+    # port's include DeepLab-v2 ResNet-101, which the JAX package lacks).
+    jax_names, port_names = sorted(jax_registry._REGISTRY), sorted(registry._REGISTRY)
+    assert port_names == sorted([*jax_names, "deeplab_v2_resnet101"])
+    assert str(port_err.value) == str(jax_err.value).replace(str(jax_names), str(port_names))
     with pytest.raises(KeyError, match="unknown model 'segformer'"):
         build_model(ModelConfig(name="segformer"), 0, torch.device("cpu"))
 

@@ -1114,3 +1114,98 @@ def test_world_of_one_over_nccl_steps_bit_equal_to_no_world(cuda_device, tmp_pat
         world.close()
     assert losses == alone_losses
     assert bitwise_diff(state.model.state_dict(), alone.model.state_dict()) == []
+
+
+def _load_resnet_reference():
+    """``tests/torch_reference/deeplab_v2_resnet.py`` by its path (the card
+    machine may have another ``tests`` package on its path)."""
+    path = os.path.join(os.path.dirname(__file__), "torch_reference", "deeplab_v2_resnet.py")
+    spec = importlib.util.spec_from_file_location("deeplab_v2_resnet_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _resnet_gaps(want: dict, got: dict) -> tuple[float, str]:
+    """The worst leaf's | ||got|| - ||want|| | over the larger of ||want||
+    and the median leaf's ||want||, and its leaf: the benchmark's
+    ``grad_gap`` and ``change_gap`` (``harness.leaf_gap``). In bf16 the
+    early layers' gradients point up to 70% away from float32's (their
+    sums over pixels cancel), so a leaf's norm is held, not its vector."""
+    norms = {k: float(v.norm()) for k, v in want.items()}
+    floor = float(np.median(list(norms.values())))
+    gaps = {k: abs(float(got[k].float().norm()) - norms[k]) / max(norms[k], floor) for k in want}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+@pytest.mark.gpu
+def test_resnet101_bf16_forward_and_em_step_at_321_match_the_reference(cuda_device):
+    """DeepLab-v2 ResNet-101 at its published widths in bf16, a batch of 2
+    VOC-like images at 321x321 (a 41x41 score map): the forward's logits,
+    and one EM step through ``train_step`` (K1, the loss, SGD with the LR
+    groups) against the float32 reference of
+    ``tests/torch_reference/deeplab_v2_resnet.py`` (TF32 off), on seeded
+    weights (the trunk Kaiming-normal, ASPP N(0, 0.01)) with calibrated
+    statistics: the loss, each leaf's gradient and its update. The
+    tolerances lie at or under the cell ``train-r101-321-fold30``'s
+    limits (PERF.md §2)."""
+    from em_adapt_torch.config import ExperimentConfig, ModelConfig, OptimConfig
+    from em_adapt_torch.models.registry import get_model
+    from em_adapt_torch.train.optim import AccumulatingSGD
+    from em_adapt_torch.train.state import TrainState
+    from em_adapt_torch.train.trainer import train_step
+
+    ref = _load_resnet_reference()
+    ref.exact_float32()
+    params, stats = ref.init(torch.Generator().manual_seed(21), trunk_std=None)
+    params = {n: {k: v.to(cuda_device) for k, v in p.items()} for n, p in params.items()}
+    stats = {n: {k: v.to(cuda_device) for k, v in p.items()} for n, p in stats.items()}
+    label = torch.zeros(2, 321, 321, 1, dtype=torch.uint8, device=cuda_device)
+    label[0, 40:250, 60:300] = 7
+    label[1, 100:321, 0:160] = 12
+    # VOC-like images: a colour a region, plus noise; void rows show the
+    # background's colour.
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    colors = torch.randint(0, 256, (2, 21, 3), generator=gen, device=cuda_device).float()
+    region = label[..., 0].long()
+    image = torch.gather(colors, 1, region.reshape(2, -1, 1).expand(-1, -1, 3)).reshape(
+        2, 321, 321, 3)
+    image = (image + 20 * torch.randn(image.shape, generator=gen, device=cuda_device)).round()
+    image = image.clamp(0, 255).to(torch.uint8)
+    label[:, :20] = 255
+    ref.calibrate(params, stats, image)
+    batch = {"image": image, "label": label}
+    cfg = ExperimentConfig(
+        model=ModelConfig(name="deeplab_v2_resnet101", compute_dtype="bfloat16",
+                          block1_impl="xla"),
+        optim=OptimConfig(accum_steps=1, lr_multipliers=True))
+    hwio = {n: {"w": p["w"].permute(2, 3, 1, 0), **{k: v for k, v in p.items() if k != "w"},
+                **stats.get(n, {})} for n, p in params.items()}
+    model = get_model(cfg.model.name)(cfg.model).load_params(hwio).to(cuda_device)
+    with torch.no_grad():
+        z_p, z_r = model(image), ref.forward(params, stats, image)
+    assert z_p.shape == (2, 41, 41, 21)
+    logits_gap = float((z_p - z_r).norm() / z_r.norm())
+
+    model.train()
+    names, leaves = zip(*model.named_parameters())
+    state = TrainState(model, AccumulatingSGD(leaves, cfg.optim, names=names, head=model.HEAD),
+                       torch.Generator(cuda_device))
+    orders = torch.stack([torch.randperm(20, generator=torch.Generator().manual_seed(r)) + 1
+                          for r in range(5)]).to(torch.int32).to(cuda_device)
+    metrics = train_step(state, batch, cfg, orders=orders)
+    loss, grads, new = ref.train_step(params, stats, batch, metrics["weak"],
+                                      lr=cfg.optim.base_lr, weight_decay=cfg.optim.weight_decay)
+    key = {f"layers.{n}.{'weight' if k == 'w' else 'bias'}": (n, k) for n, k in grads}
+    got = dict(model.named_parameters())
+    grad_gap, grad_leaf = _resnet_gaps({n: grads[key[n]] for n in key},
+                                       {n: got[n].grad for n in key})
+    start = {f"layers.{n}.{'weight' if k == 'w' else 'bias'}": v for n, p in params.items()
+             for k, v in p.items()}
+    change_gap, change_leaf = _resnet_gaps({n: new[key[n]] - start[n] for n in key},
+                                           {n: got[n].detach() - start[n] for n in key})
+    loss_gap = abs(float(metrics["loss"]) - float(loss)) / float(loss)
+    print(f"resnet101 bf16 at 321: logits_gap {logits_gap:.5f}, loss_gap {loss_gap:.2e}, "
+          f"grad_gap {grad_gap:.5f} ({grad_leaf}), change_gap {change_gap:.5f} ({change_leaf})")
+    assert logits_gap < 0.25 and loss_gap < 0.02 and grad_gap < 0.15 and change_gap < 0.15

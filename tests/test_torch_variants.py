@@ -192,7 +192,8 @@ def test_lr_group_update_matches_jax_optax_chain(accum):
     g = np.random.default_rng(0)
     params = [torch.nn.Parameter(torch.from_numpy(g.normal(size=(2, 3)).astype(np.float32)))
               for _ in names]
-    opt = AccumulatingSGD(params, pcfg.OptimConfig(**ocfg), names=names)
+    opt = AccumulatingSGD(params, pcfg.OptimConfig(**ocfg), names=names,
+                          head=DeepLabLargeFOV.HEAD)
     tx, _ = build_optimizer(jcfg.OptimConfig(**ocfg), 1)
 
     def tree(tensors):  # the JAX package's {layer: {"w", "b"}} over the same leaves
